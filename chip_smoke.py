@@ -8,18 +8,32 @@ Run from the repository root, on a machine with one CUDA card:
 Phases, in order; any failure exits non-zero and prints no result line:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ray_tpu_torch/ops/csrc (timed);
-  3. each kernel against its plain PyTorch version at the Llama-3-8B
-     shapes in bf16: max-abs error against a stated tolerance, and times
-     from CUDA events beside the bound, the plain version and, for flash,
-     F.scaled_dot_product_attention as a yardstick (the port never calls
-     it);
+  3. each forward kernel against its plain PyTorch version at the
+     Llama-3-8B shapes in bf16: max-abs error against a stated tolerance,
+     and times from CUDA events beside the bound, the plain version and,
+     for flash, F.scaled_dot_product_attention as a yardstick (the port
+     never calls it);
+  3b. each flash backward kernel (dQ, dK/dV on the KV-head grid, dK/dV per
+     query head) the same way at S = 512 and 2048, through the wrapper
+     flash_attention_bwd with each grid forced, with the backward of
+     F.scaled_dot_product_attention as the yardstick;
   4. a small model (2 layers, head dim 128) in float32 with TF32 off:
      prefill and decode logits and greedy tokens of the CUDA engine
      against the same weights run with device="cpu";
+  4b. three CompiledTrainStep steps of the same model on the card against
+     the CPU (S = 256: the flash forward and backward kernels run): losses,
+     step-1 gradients, the card's weights against AdamW replayed on the CPU
+     from the card's gradients, and the weights after step 3;
   5. Llama-3-8B at full width and depth, random bf16 weights drawn on the
      card from a seed, served by LLMEngine(max_batch=4, max_len=512,
      page_size=16): six concurrent requests, more than the slots, with
      every launch counter reset just before and read just after;
+  7. Llama-3-8B at full width and depth trained by CompiledTrainStep (full
+     remat, loss_chunk 512, AdamW, B = 1, S = 2048): loss and gradient
+     norms with the flash kernels against plain attention, then 2 warm-up
+     and 5 measured steps (ms/step, tokens/s, MFU, peak memory) and one
+     step at S = 512, with every launch counter reset just before and read
+     just after, and a profiler breakdown of one step;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -165,24 +179,159 @@ def phase_kernels():
     return results
 
 
+def phase_backward_kernels():
+    """The three backward kernels at the 8B attention shape (B=1, H=32,
+    Hkv=8, D=128, causal, bf16), S = 512 and 2048. Correctness through the
+    wrapper, ``flash_attention_bwd``, with each dK/dV grid forced by the
+    switch constant and a non-contiguous dO: dq, dk and dv each against
+    ``flash_attention_bwd_reference``. Times of each kernel alone through
+    its launcher, and of the wrapper as the main path runs it."""
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    lib = _build.library()
+    B, H, Hkv, D = 1, 32, 8, 128
+    # bf16 tolerance: max|d| <= 1e-2 max|ref| for each of dq, dk and dv.
+    # The tensor-core kernels round P and dS to bf16 (relative step 2^-8 =
+    # 3.9e-3) as product operands, as flash-attention-2 does, and each
+    # gradient sums up to S such terms; the plain version keeps them in
+    # float32.
+    rel_tol = 1e-2
+    # The switch constant that forces each dK/dV grid.
+    forced = {"flash_bwd_dkv": 0, "flash_bwd_dkv_per_head": 10 ** 9}
+    default_min_blocks = fa.DKV_GROUPED_MIN_BLOCKS
+    results = {}
+    for S in (512, 2048):
+        q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(bf16)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        # dO as autograd may hand it over: the same values, not contiguous.
+        do_t = do.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not do_t.is_contiguous()
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                               causal=True)
+        ref_max = [w.float().abs().max().item() for w in ref]
+
+        # Correctness: the wrapper on each grid.
+        errs = {}
+        for name, min_blocks in forced.items():
+            fa.DKV_GROUPED_MIN_BLOCKS = min_blocks
+            try:
+                before = train_launches()
+                got = fa.flash_attention_bwd(q, k, v, o, lse, do_t,
+                                             causal=True)
+                torch.cuda.synchronize()
+                ran = {c: n - before[c] for c, n in train_launches().items()}
+            finally:
+                fa.DKV_GROUPED_MIN_BLOCKS = default_min_blocks
+            want = {c: int(c in ("flash_bwd_dq", name)) for c in ran}
+            assert ran == want, (name, S, ran, want)
+            e = [(g.float() - w.float()).abs().max().item()
+                 for g, w in zip(got, ref)]
+            log(f"[kernels] flash_attention_bwd S={S}, {name} grid forced: "
+                f"max|d| dq {e[0]:.3e}, dk {e[1]:.3e}, dv {e[2]:.3e} (tol "
+                f"{rel_tol} x max|ref| {ref_max[0]:.3e}, {ref_max[1]:.3e}, "
+                f"{ref_max[2]:.3e}); launches {ran}")
+            assert all(x <= rel_tol * m for x, m in zip(e, ref_max)), (
+                name, S, e, ref_max)
+            errs["flash_bwd_dq"] = max(errs.get("flash_bwd_dq", 0.0), e[0])
+            errs[name] = max(e[1], e[2])
+
+        # Times: each kernel alone, the plain backward, SDPA's backward,
+        # and the wrapper as the main path runs it (the switch's grid).
+        delta = fa.bwd_delta(o, do)
+        kw = dict(causal=True, scale=D ** -0.5, q_offset=0, kv_offset=0,
+                  stream=_build.current_stream(q))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal=True), reps=5)
+        wrapper_ms = cuda_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do_t, causal=True))
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        gout = do.transpose(1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), gout, retain_graph=True))
+        pairs = S * (S + 1) // 2
+        in_bytes = 2 * 2 * (q.numel() + k.numel()) + 2 * 4 * B * H * S
+        timed = {
+            "flash_bwd_dq": (
+                lambda: fa.launch_bwd_dq(lib, q, k, v, do, lse, delta, **kw),
+                3, 2 * q.numel()),
+            "flash_bwd_dkv": (
+                lambda: fa.launch_bwd_dkv(lib, q, k, v, do, lse, delta,
+                                          per_head=False, **kw),
+                4, 2 * 2 * k.numel()),
+            "flash_bwd_dkv_per_head": (
+                lambda: fa.launch_bwd_dkv(lib, q, k, v, do, lse, delta,
+                                          per_head=True, **kw),
+                4, 2 * 4 * B * S * H * D),
+        }
+        for name, (fn, products, out_bytes) in timed.items():
+            ms = cuda_ms(fn)
+            b_ms, b_by = bound(in_bytes + out_bytes,
+                               products * 2.0 * D * pairs * B * H,
+                               BF16_FLOPS_PER_S)
+            log(f"[kernels] {name} S={S}: kernel alone {ms:.4f} ms, plain "
+                f"backward {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
+                f"bound {b_ms:.5f} ms ({b_by})")
+            results[f"{name}_S{S}"] = dict(
+                max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        grid = ("per-query-head" if fa.dkv_per_head(B, H, Hkv, S, D)
+                else "KV-head")
+        log(f"[kernels] flash_attention_bwd S={S} as the main path runs it "
+            f"(delta, dQ, dK/dV on the {grid} grid): {wrapper_ms:.4f} ms "
+            f"against sdpa backward {lib_ms:.4f} ms")
+    return results
+
+
+def small_f32_config():
+    """Phases 4 and 4b's model: 2 layers, head dim 128 (both attention
+    kernels take it), float32."""
+    from ray_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024,
+                       num_layers=2, num_heads=4, num_kv_heads=2,
+                       rope_theta=10_000.0, dtype=torch.float32)
+
+
 def params_to(params, device):
     return {k: (params_to(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in params.items()}
 
 
+def cpu_copy(tree):
+    """A copy of a tree of tensors on the CPU, sharing nothing with it."""
+    return {k: (cpu_copy(v) if isinstance(v, dict)
+                else v.detach().to("cpu", copy=True)) for k, v in tree.items()}
+
+
+def flat_tree(tree):
+    """{name: tensor} of a parameter tree, layer leaves as ``layers.<k>``."""
+    out = {k: v for k, v in tree.items() if torch.is_tensor(v)}
+    out.update({f"layers.{k}": v for k, v in tree["layers"].items()})
+    return out
+
+
 def phase_parity():
     """Card against CPU, float32 with TF32 off, on a 2-layer model whose
     head dim (128) both kernels take."""
-    from ray_tpu_torch.models import LlamaConfig, init_params
+    from ray_tpu_torch.models import init_params
     from ray_tpu_torch.models.generation import (
         PagedKVCache, paged_decode, paged_prefill)
     from ray_tpu_torch.serve.llm import LLMEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024,
-                      num_layers=2, num_heads=4, num_kv_heads=2,
-                      rope_theta=10_000.0, dtype=torch.float32)
+    cfg = small_f32_config()
     p_cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     p_gpu = params_to(p_cpu, "cuda")
     rng = np.random.RandomState(1)
@@ -233,6 +382,87 @@ def phase_parity():
     log(f"[parity] engine greedy tokens cuda={outs['cuda']} "
         f"cpu={outs['cpu']}")
     assert outs["cuda"] == outs["cpu"], outs
+
+
+def phase_train_parity():
+    """Three training steps on the card against the CPU, float32 with TF32
+    off, on phase 4's model at S = 256: the flash forward and backward
+    kernels (float32 paths) run on the card, their plain versions on the
+    CPU."""
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.train import AdamW, CompiledTrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = small_f32_config()
+    tokens = torch.tensor(np.random.RandomState(3).randint(0, 256, (1, 257)),
+                          dtype=torch.int32)
+    p0 = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = params_to(p0, "cuda") if dev == "cuda" else cpu_copy(p0)
+        step = CompiledTrainStep(cfg, device=dev)
+        state = AdamW().init(params)
+        before = train_launches()
+        losses, grads = [], []
+        for _ in range(3):
+            losses.append(step(params, state, tokens)[2].item())
+            grads.append(cpu_copy(step.grads))
+        runs[dev] = dict(losses=losses, weights=flat_tree(cpu_copy(params)),
+                         grads=grads, launches={
+                             k: v - before[k]
+                             for k, v in train_launches().items()})
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert not any(cpu["launches"].values()), cpu["launches"]
+    assert card["launches"]["flash_fwd"] and card["launches"][
+        "flash_bwd_dq"] and (card["launches"]["flash_bwd_dkv"]
+                             + card["launches"]["flash_bwd_dkv_per_head"]), (
+        card["launches"])
+    d_loss = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+    # Step 1 starts from the same weights on both devices: its gradients
+    # differ only by the order of float32 sums (~1e-6 of the largest).
+    g_card, g_cpu = flat_tree(card["grads"][0]), flat_tree(cpu["grads"][0])
+    g_rel = max((g_card[k] - g_cpu[k]).abs().max().item()
+                / g_cpu[k].abs().max().item() for k in g_cpu)
+    # AdamW on the CPU from the same weights, fed the card's gradients:
+    # the card's weights follow from its gradients alone.
+    replay = cpu_copy(p0)
+    opt = AdamW()
+    opt_state = opt.init(replay)
+    for g in card["grads"]:
+        opt.update(replay, g, opt_state)
+    replay = flat_tree(replay)
+    w_card, w_cpu = card["weights"], cpu["weights"]
+    d_replay = max((replay[k] - w_card[k]).abs().max().item() for k in w_card)
+    # Weights: all but 0.1% of each leaf's elements within 2e-5. AdamW
+    # divides by the root of the second moment, so an element whose
+    # gradient (or first moment) is near the level of the step-1
+    # differences takes a step of another size on each device.
+    d_max = max((w_card[k] - w_cpu[k]).abs().max().item() for k in w_cpu)
+    off_share, off_g1 = 0.0, []
+    for k in w_cpu:
+        off = (w_card[k] - w_cpu[k]).abs() > 2e-5
+        off_share = max(off_share, off.float().mean().item())
+        off_g1 += zip(g_card[k][off].tolist(), g_cpu[k][off].tolist())
+    tiny = sum(max(abs(a), abs(b)) < 1e-7 for a, b in off_g1)
+    flips = sum((a > 0) != (b > 0) for a, b in off_g1)
+    dg_max = max((g_card[k] - g_cpu[k]).abs().max().item() for k in g_cpu)
+    log(f"[parity] train, float32, TF32 off, 3 CompiledTrainStep steps at "
+        f"S=256: losses cuda {card['losses']} cpu {cpu['losses']}, "
+        f"max|d loss|={d_loss:.3e} (tol 1e-4); step-1 gradients max|d| / "
+        f"max|g| of the worst leaf {g_rel:.3e} (tol 2e-5; largest |d| "
+        f"{dg_max:.3e}); card weights against AdamW on the CPU fed the "
+        f"card's gradients: max|d| {d_replay:.3e} (tol 1e-6)")
+    log(f"[parity] train weights after step 3, card vs CPU: largest share of "
+        f"a leaf off by > 2e-5 {off_share:.2e} (tol 1e-3), max|d| "
+        f"{d_max:.3e}; of the {len(off_g1)} elements off, {tiny} had a "
+        f"step-1 gradient below 1e-7 on both devices, {flips} a step-1 "
+        f"gradient of other signs, largest step-1 |g| "
+        f"{max((max(abs(a), abs(b)) for a, b in off_g1), default=0.0):.3e}; "
+        f"card launches {card['launches']}")
+    assert d_loss <= 1e-4 and g_rel <= 2e-5 and d_replay <= 1e-6, (
+        d_loss, g_rel, d_replay)
+    assert off_share <= 1e-3, off_share
 
 
 def phase_slice(card: str):
@@ -333,36 +563,194 @@ def phase_slice(card: str):
     return launches
 
 
+def _grad_norms(grads):
+    def norm(t):  # in float32 without a float32 copy of the leaf
+        return torch.linalg.vector_norm(t, dtype=torch.float32).item()
+
+    return {k: norm(v) for k, v in flat_tree(grads).items()}
+
+
+# Kernel name -> its launch counter in ray_tpu_torch.ops.flash_attention.
+TRAIN_COUNTERS = {"flash_fwd": "launches", "flash_bwd_dq": "bwd_dq_launches",
+                  "flash_bwd_dkv": "bwd_dkv_launches",
+                  "flash_bwd_dkv_per_head": "bwd_dkv_per_head_launches"}
+
+
+def train_launches(reset: bool = False):
+    """The training path's launch counts, set to 0 first if ``reset``."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    if reset:
+        for attr in TRAIN_COUNTERS.values():
+            setattr(fa, attr, 0)
+    return {k: getattr(fa, attr) for k, attr in TRAIN_COUNTERS.items()}
+
+
+def phase_train(card: str):
+    """Llama-3-8B at full width and depth trained on the card."""
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.train import CompiledTrainStep
+
+    cfg = LlamaConfig.llama3_8b()  # remat "full", loss_chunk 512
+    assert cfg.remat_policy == "full" and cfg.loss_chunk == 512
+    B, S = 1, 2048
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step = CompiledTrainStep(cfg, learning_rate=1e-3)
+    params, opt_state = step.init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    P = step.num_params(params)
+    gb = 1e9
+    log(f"[train] llama3_8b: {P / 1e9:.3f} B params, {cfg.num_layers} "
+        f"layers, bf16, AdamW(1e-3); params, grads and moments allocated in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / gb:.2f} GB on the card")
+    saved = cfg.num_layers * B * S * cfg.hidden_size * 2
+    log(f"[train] memory reckoning: bf16 params {2 * P / gb:.1f} GB + grads "
+        f"{2 * P / gb:.1f} GB + bf16 m and v {4 * P / gb:.1f} GB = "
+        f"{8 * P / gb:.1f} GB persistent, + {saved / gb:.2f} GB of saved "
+        f"layer inputs ({cfg.num_layers} x [{B}, {S}, {cfg.hidden_size}] "
+        f"bf16) + under 2 GB for one layer's recompute: under 80 GB")
+    tokens = torch.tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S + 1)), dtype=torch.int32, device="cuda")
+
+    # Full-width check at step 0: flash kernels against plain attention,
+    # one after the other through the step's one gradient buffer. bf16
+    # through 32 layers: both round P to bf16 before PV, in other places
+    # and orders, so the loss may differ by 1e-2 and a gradient norm by 5%.
+    loss_f, grads = step.value_and_grad(params, tokens)
+    norms_f = _grad_norms(grads)
+    loss_f = loss_f.item()
+    step.cfg = dataclasses.replace(cfg, use_flash=False)
+    loss_p, grads = step.value_and_grad(params, tokens)
+    norms_p = _grad_norms(grads)
+    loss_p = loss_p.item()
+    step.cfg = cfg
+    rel = {k: abs(norms_f[k] - norms_p[k]) / max(norms_p[k], 1e-12)
+           for k in norms_p}
+    worst = max(rel, key=rel.get)
+    log(f"[train] step-0 loss flash {loss_f:.5f} vs plain attention "
+        f"{loss_p:.5f}: |d|={abs(loss_f - loss_p):.3e} (tol 1e-2); gradient "
+        f"norms of {len(rel)} leaves, worst relative difference "
+        f"{rel[worst]:.3e} at {worst} (tol 5e-2); norms flash "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sorted(norms_f.items())))
+    # Checked after the measured steps below, so a failing run still
+    # prints its numbers; the phase fails all the same.
+    checks = [(np.isfinite(loss_f) and abs(loss_f - loss_p) <= 1e-2,
+               ("loss", loss_f, loss_p)),
+              (all(np.isfinite(v) and v > 0 for v in norms_f.values()),
+               ("norms", norms_f)),
+              (rel[worst] <= 5e-2, ("norm", worst, rel[worst]))]
+
+    # The main path: warm-up, measured steps, one short-sequence step.
+    train_launches(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    for i in range(7):
+        before = train_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, loss = step(params, opt_state, tokens)
+        loss = loss.item()  # synchronises
+        times.append(time.perf_counter() - t)
+        losses.append(loss)
+        per_step.append({k: v - before[k]
+                         for k, v in train_launches().items()})
+        assert np.isfinite(loss), (i, loss)
+    short = tokens[:, :513]
+    before = train_launches()
+    _, _, loss_short = step(params, opt_state, short)
+    short_launches = {k: v - before[k] for k, v in train_launches().items()}
+    assert np.isfinite(loss_short.item())
+    launches = train_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(times[2:])) * 1e3
+    tps = B * S / (ms / 1e3)
+    flops_per_token = 6 * P + 12 * cfg.num_layers * S * (
+        cfg.num_heads * cfg.dh)
+    mfu = tps * flops_per_token / BF16_FLOPS_PER_S
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "flash_bwd_dkv_per_head": 0}
+    want_short = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": 0,
+                  "flash_bwd_dkv_per_head": L}
+    log(f"[train] losses over 2 warm-up + 5 measured steps (same batch): "
+        f"{[round(x, 4) for x in losses]}; S=512 step loss "
+        f"{loss_short.item():.4f}")
+    log(f"[train] B=1 S=2048 on {card}: {ms:.1f} ms/step (median of 5, "
+        f"synchronised; all {[round(t * 1e3, 1) for t in times]}), "
+        f"{tps:.0f} tokens/s, MFU {mfu:.4f} (6P + 12 L S H Dh = "
+        f"{flops_per_token / 1e9:.2f} GFLOP/token against 989 TFLOP/s); "
+        f"peak {peak / gb:.2f} GB allocated, "
+        f"{torch.cuda.max_memory_reserved() / gb:.2f} GB reserved")
+    log(f"[train] launches per S=2048 step: {per_step[-1]} (want {want}); "
+        f"S=512 step: {short_launches} (want {want_short}); whole run "
+        f"{launches}")
+    assert all(p == want for p in per_step), per_step
+    assert short_launches == want_short, short_launches
+    phase_train_breakdown(step, params, opt_state, tokens)
+    for ok, what in checks:
+        assert ok, what
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_breakdown(step, params, opt_state, tokens):
+    """Device time of one training step by kind, against its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(params, opt_state, tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, opt_state, tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    _report("train step B=1 S=2048", wall, _device_kernels(prof, 1),
+            kinds=TRAIN_KINDS, top=12)
+
+
 def _device_kernels(prof, steps: int):
-    """(name, ms per step, launches per step) of every device kernel."""
+    """(name, ms per step, launches per step) of every device kernel. A
+    user annotation (torch.optim's ``Optimizer.step#AdamW.step``) carries
+    the device time of the kernels inside it and is left out."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and not getattr(e, "is_user_annotation", False)]
     return sorted(rows, key=lambda r: -r[1])
 
 
-def _report(what: str, wall_ms: float, rows) -> None:
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "sm90")
+SERVE_KINDS = (("flash_fwd", ("flash_fwd",)),
+               ("paged_decode", ("paged_decode",)), ("gemm", GEMM_NAMES))
+TRAIN_KINDS = (("flash_fwd", ("flash_fwd",)), ("dq", ("flash_bwd_dq",)),
+               ("dkv", ("flash_bwd_dkv",)), ("optimizer", ("adam",)),
+               ("gemm", GEMM_NAMES))
+
+
+def _report(what: str, wall_ms: float, rows, kinds=SERVE_KINDS,
+            top: int = 6) -> None:
     busy = sum(r[1] for r in rows)
-    groups = {"flash_fwd": 0.0, "paged_decode": 0.0, "gemm": 0.0,
-              "other": 0.0}
+    groups = {label: 0.0 for label, _ in kinds}
+    groups["other"] = 0.0
     for name, ms, _n in rows:
-        if "flash_fwd" in name:
-            groups["flash_fwd"] += ms
-        elif "paged_decode" in name:
-            groups["paged_decode"] += ms
-        elif any(s in name.lower() for s in ("gemm", "nvjet", "xmma",
-                                             "cutlass", "sm90")):
-            groups["gemm"] += ms
-        else:
-            groups["other"] += ms
+        low = name.lower()
+        label = next((lb for lb, keys in kinds
+                      if any(k in low for k in keys)), "other")
+        groups[label] += ms
     log(f"[breakdown] {what}: wall {wall_ms:.2f} ms, device busy "
         f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}; "
         f"device ms by kind " + ", ".join(
             f"{k} {v:.3f}" for k, v in groups.items()) +
         f"; {sum(r[2] for r in rows):.0f} kernel launches")
-    for name, ms, n in rows[:6]:
+    for name, ms, n in rows[:top]:
         log(f"[breakdown]   {ms:.3f} ms x{n:.0f} {name[:90]}")
 
 
@@ -443,20 +831,42 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
     phase_build()
     kern = phase_kernels()
+    kern.update(phase_backward_kernels())
     phase_parity()
+    phase_train_parity()
     launches = phase_slice(card)
+    train = phase_train(card)
     src = "ray_tpu_torch/ops/csrc/"
+    fa_src = "ray_tpu/ops/flash_attention.py:"
+    attn = "B=1 H=32 Hkv=8 D=128 causal bf16"
+    sdpa_bwd = "backward of F.scaled_dot_product_attention (dQ, dK, dV)"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
-             replaces="ray_tpu/ops/flash_attention.py:40",
-             launches=launches["flash_fwd"], shape="B=1 S=512 H=32 Hkv=8 "
-             "D=128 causal bf16", **kern["flash_fwd_S512"]),
+             replaces=fa_src + "40",
+             launches=launches["flash_fwd"] + train["flash_fwd"],
+             launches_by_path={"serve": launches["flash_fwd"],
+                               "train": train["flash_fwd"]},
+             shape="S=512 " + attn, **kern["flash_fwd_S512"]),
+        dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
+             replaces=fa_src + "144", launches=train["flash_bwd_dq"],
+             shape="S=2048 " + attn, library=sdpa_bwd,
+             **kern["flash_bwd_dq_S2048"]),
+        dict(name="flash_bwd_dkv", route="cuda", source=src + "flash_bwd.cu",
+             replaces=fa_src + "187", launches=train["flash_bwd_dkv"],
+             shape="S=2048 KV-head grid " + attn, library=sdpa_bwd,
+             **kern["flash_bwd_dkv_S2048"]),
+        dict(name="flash_bwd_dkv_per_head", route="cuda",
+             source=src + "flash_bwd.cu", replaces=fa_src + "344",
+             launches=train["flash_bwd_dkv_per_head"],
+             shape="S=512 per-query-head grid " + attn, library=sdpa_bwd,
+             **kern["flash_bwd_dkv_per_head_S512"]),
         dict(name="paged_decode", route="cuda",
              source=src + "paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:28",
              launches=launches["paged_decode"], shape="B=8 H=32 Hkv=8 D=128 "
              "page=16 Pmax=32 bf16", **kern["paged_decode"]),
     ]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     log(f"[card] {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

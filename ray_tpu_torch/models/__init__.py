@@ -1,5 +1,12 @@
-"""ray_tpu_torch.models: the Llama family in PyTorch (dense path), the
-KV-cache generation paths, and the numpy converter for JAX parameter trees."""
+"""ray_tpu_torch.models: the Llama family in PyTorch (dense path, with the
+training loss), the KV-cache generation paths, and the numpy converters for
+JAX parameter trees and optax state."""
 
-from .convert import params_from_numpy  # noqa: F401
-from .llama import LlamaConfig, forward, init_params, num_params  # noqa: F401
+from .convert import adam_state_from_numpy, params_from_numpy  # noqa: F401
+from .llama import (  # noqa: F401
+    LlamaConfig,
+    causal_lm_loss,
+    forward,
+    init_params,
+    num_params,
+)

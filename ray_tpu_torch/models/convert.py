@@ -1,9 +1,11 @@
-"""Carry a parameter tree over from numpy into the port's dict.
+"""Carry a parameter tree and an optimizer state over from numpy.
 
 ``params_from_numpy(jax.tree.map(np.asarray, ray_tpu.models.init_params(
 cfg, key)), cfg, device)`` gives the port the JAX package's weights, leaf
 for leaf: the keys, shapes and layout are the same, so nothing is
-transposed. This module imports no JAX; the caller does the ``np.asarray``.
+transposed. ``adam_state_from_numpy`` does the same for optax's
+``ScaleByAdamState`` (count, mu, nu). This module imports no JAX; the
+caller does the ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..train.optim import AdamState
 from .llama import LlamaConfig, Params, _is_norm, param_shapes
 
 
@@ -51,3 +54,14 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig,
         for k, s in shapes["layers"].items()
     }
     return out
+
+
+def adam_state_from_numpy(count: Any, mu: Dict[str, Any], nu: Dict[str, Any],
+                          cfg: LlamaConfig,
+                          device: DeviceLike = None) -> AdamState:
+    """optax's ``ScaleByAdamState`` (``opt_state[0]`` of ``optax.adamw``),
+    its count and moment trees given as numpy, as the port's
+    :class:`AdamState`; the moments take the parameters' dtypes, as
+    optax's do with ``mu_dtype=None``."""
+    return AdamState(int(np.asarray(count)), params_from_numpy(mu, cfg, device),
+                     params_from_numpy(nu, cfg, device))

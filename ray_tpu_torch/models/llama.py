@@ -6,27 +6,40 @@ the JAX ``init_params`` (``wq`` is [L, M, H, Dh], layers stacked on a
 leading L axis), so a JAX tree loads 1:1 (``models/convert.py``). bf16
 weights and activations with float32 RMSNorm, rope and SiLU, as in JAX.
 
-Attention goes through the flash kernel (``ops/flash_attention.py``) when
-``cfg.use_flash`` is set, else through plain ``mha_attention``. The layers
-run as a Python loop over per-layer views of the stacked weights. Remat,
-scan chunks, sharding constraints and the loss come with the training
-slice; MoE (``n_experts > 0``) and sequence parallelism with the
-``parallel/`` slice, and raise ``NotImplementedError`` until then.
+Attention goes through the flash kernels (``ops/flash_attention.py``,
+differentiable through the backward kernels) when ``cfg.use_flash`` is set,
+else through plain ``mha_attention``. The layers run as a Python loop (the
+JAX ``lax.scan``) over per-layer weights. Training (JAX ``:272-434``):
+``remat_policy`` and ``scan_chunk`` through ``torch.utils.checkpoint``, the
+chunked cross-entropy and ``causal_lm_loss``; :func:`trainable_leaves`
+gives the backward per-layer leaves whose gradients land in one stacked
+buffer. Sharding constraints come with the ``parallel/`` slice; MoE
+(``n_experts > 0``) and sequence parallelism too, and raise
+``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import threading
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from .._device import DeviceLike, index_like_jax, resolve_device
 from ..ops.attention import mha_attention
 from ..ops.flash_attention import flash_attention
 
 Params = Dict[str, Any]
+Layer = Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,9 +172,36 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     }
 
 
-def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
+def layer_params(params: Params, i: int) -> Layer:
     """Layer i's weights: views into the stacked leaves (no copy)."""
     return {k: v[i] for k, v in params["layers"].items()}
+
+
+def trainable_leaves(params: Params,
+                     grads: Params) -> Tuple[Params, List[Layer]]:
+    """Leaves for a backward pass: (top, layers), where ``top`` holds
+    embed/final_norm/lm_head and ``layers[i]`` layer i's weights, each a
+    leaf that requires grad and shares storage with ``params``, its
+    ``.grad`` preset to the matching view of ``grads`` (zeros, same tree).
+    The backward then accumulates every gradient in place into ``grads``'s
+    stacked buffers.
+
+    Views ``stacked[i]`` that require grad would give each layer's
+    backward a ``select_backward``, which allocates a zero tensor of the
+    whole stack and adds it into the stack's gradient: at 8B, 32 times
+    13.96 GB of traffic per step and two 3.8 GB transients."""
+
+    def leaf(t, g):
+        out = t.detach().requires_grad_()
+        out.grad = g
+        return out
+
+    top = {k: leaf(params[k], grads[k])
+           for k in ("embed", "final_norm", "lm_head")}
+    layers = [{k: leaf(v[i], grads["layers"][k][i])
+               for k, v in params["layers"].items()}
+              for i in range(next(iter(params["layers"].values())).shape[0])]
+    return top, layers
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -202,10 +242,27 @@ def project_out(attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return attn.reshape(B, S, H * Dh) @ wo.reshape(H * Dh, -1)
 
 
-def mlp(h: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
+_names = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Names the products computed inside, for the ``"mlp"`` remat policy
+    (JAX ``checkpoint_name``)."""
+    outer = getattr(_names, "current", None)
+    _names.current = name
+    try:
+        yield
+    finally:
+        _names.current = outer
+
+
+def mlp(h: torch.Tensor, lp: Layer) -> torch.Tensor:
     """SwiGLU feed-forward; SiLU in float32, then cast (JAX ``:254``)."""
-    up = h @ lp["w_up"]
-    gate = h @ lp["w_gate"]
+    with checkpoint_name("mlp_up"):
+        up = h @ lp["w_up"]
+    with checkpoint_name("mlp_gate"):
+        gate = h @ lp["w_gate"]
     return (F.silu(gate.float()).to(up.dtype) * up) @ lp["w_down"]
 
 
@@ -231,25 +288,136 @@ def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
     return params["embed"][ids].to(cfg.dtype)
 
 
-def hidden_forward(params: Params, tokens: torch.Tensor,
-                   cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+_MATMULS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+})
+_MLP_NAMES = frozenset({"mlp_up", "mlp_gate"})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_mlp(ctx, op, *args, **kwargs):
+    if op in _MATMULS and getattr(_names, "current", None) in _MLP_NAMES:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context_fn(cfg: LlamaConfig):
+    """The ``context_fn`` for ``torch.utils.checkpoint`` that
+    ``cfg.remat_policy`` selects (JAX ``remat_policy``): "dots" saves every
+    matmul output, "mlp" only the MLP up/gate products, anything else
+    ("full") nothing but the checkpoint's inputs. "save_all" takes no
+    checkpoint at all (see :func:`hidden_forward`)."""
+    policy = {"dots": _save_dots, "mlp": _save_mlp}.get(cfg.remat_policy)
+    if policy is None:
+        return noop_context_fn
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def scan_chunks(cfg: LlamaConfig) -> Tuple[int, int]:
+    """(layers_per_chunk, num_chunks) for the layer schedule; scan_chunk
+    must divide num_layers (JAX ``scan_chunks``)."""
+    K = max(1, cfg.scan_chunk or 1)
+    if cfg.num_layers % K:
+        raise ValueError(
+            f"scan_chunk={K} must divide num_layers={cfg.num_layers}"
+        )
+    return K, cfg.num_layers // K
+
+
+def _run_layers(cfg: LlamaConfig, positions, x, layers: List[Layer]):
+    for lp in layers:
+        x = _layer(cfg, positions, x, lp)
+    return x
+
+
+def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   layers: Optional[List[Layer]] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Transformer trunk without the lm_head: (hidden [B, S, M] after
-    final_norm, moe_aux_loss scalar — 0 for the dense model)."""
+    final_norm, moe_aux_loss scalar — 0 for the dense model). ``layers``
+    overrides the per-layer weights (default: views of the stacked
+    leaves; :func:`trainable_leaves` for a backward pass).
+
+    While autograd records, with ``cfg.remat`` and a policy other than
+    "save_all", each run of K layers (K from ``scan_chunk`` under
+    ``scan_layers``, else 1) runs inside one ``torch.utils.checkpoint``
+    (non-reentrant), as JAX puts one ``jax.checkpoint`` around each scan
+    step. The loop is JAX's scan, so ``scan_layers`` changes nothing
+    numerically."""
     require_dense(cfg)
     B, S = tokens.shape
     x = embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device)
-    for i in range(cfg.num_layers):
-        x = _layer(cfg, positions, x, layer_params(params, i))
+    if layers is None:
+        layers = [layer_params(params, i) for i in range(cfg.num_layers)]
+    K = scan_chunks(cfg)[0] if cfg.scan_layers else 1
+    remat = (cfg.remat and cfg.remat_policy != "save_all"
+             and torch.is_grad_enabled())
+    context_fn = remat_context_fn(cfg)
+    for c in range(0, cfg.num_layers, K):
+        chunk = layers[c:c + K]
+        if remat:
+            x = checkpoint(_run_layers, cfg, positions, x, chunk,
+                           use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _run_layers(cfg, positions, x, chunk)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            layers: Optional[List[Layer]] = None,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B, S, V] float32, moe_aux_loss scalar)."""
-    x, aux = hidden_forward(params, tokens, cfg)
+    x, aux = hidden_forward(params, tokens, cfg, layers)
     return (x @ params["lm_head"]).float(), aux
+
+
+def _nll_sum(x: torch.Tensor, lm_head: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+    logits = (x @ lm_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - tgt).sum()
+
+
+def _chunked_nll_sum(x: torch.Tensor, lm_head: torch.Tensor,
+                     targets: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Total next-token NLL over [B, S] positions, streaming the lm_head
+    projection and log-sum-exp over S/chunk slices, so no [B, S, V] tensor
+    materializes; each slice is recomputed in the backward (JAX
+    ``_chunked_nll_sum``, whose padded tail adds 0)."""
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, x.shape[1], chunk):
+        args = (x[:, c0:c0 + chunk], lm_head, targets[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_nll_sum, *args, use_reentrant=False)
+        else:
+            total = total + _nll_sum(*args)
+    return total
+
+
+def causal_lm_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   *, aux_weight: float = 0.01,
+                   layers: Optional[List[Layer]] = None) -> torch.Tensor:
+    """Next-token cross entropy (tokens [B, S+1], shifted here). With
+    cfg.loss_chunk > 0 and more targets than a chunk, the head projection
+    and softmax stream over sequence chunks (JAX ``causal_lm_loss``)."""
+    targets = tokens[:, 1:]
+    chunk = cfg.loss_chunk
+    if chunk and chunk > 0 and targets.shape[1] > chunk:
+        x, aux = hidden_forward(params, tokens[:, :-1], cfg, layers)
+        total = _chunked_nll_sum(x, params["lm_head"], targets, chunk)
+        return total / targets.numel() + aux_weight * aux
+    logits, aux = forward(params, tokens[:, :-1], cfg, layers)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return nll.mean() + aux_weight * aux
 
 
 def num_params(params: Params) -> int:

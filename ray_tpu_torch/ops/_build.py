@@ -124,6 +124,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rtt_flash_fwd.argtypes = [
         i, p, p, p, p, p, i, i, i, i, i, i, p, f, i, i, i, p]
     lib.rtt_flash_fwd.restype = i
+    lib.rtt_flash_bwd_dq.argtypes = [
+        i, p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, i, i, i, p]
+    lib.rtt_flash_bwd_dq.restype = i
+    lib.rtt_flash_bwd_dkv.argtypes = [
+        i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, i, i, i, i, p]
+    lib.rtt_flash_bwd_dkv.restype = i
+    lib.rtt_flash_bwd_tile_rows.argtypes = [i]
+    lib.rtt_flash_bwd_tile_rows.restype = i
     lib.rtt_paged_decode.argtypes = [
         i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
     lib.rtt_paged_decode.restype = i

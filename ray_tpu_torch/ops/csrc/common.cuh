@@ -65,6 +65,103 @@ __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& r,
   }
 }
 
+// Copies rows [0, rows) of a ROWS x DMAX tile (source row stride `stride`
+// elements) into shared memory as float times `mul`, with row pitch
+// `pitch`; rows past `rows` and columns past D are zero. VEC: 16-byte
+// loads, a batch per thread issued before any is stored, which needs
+// 16-byte-aligned rows and D a multiple of kVec<T>; else one element at a
+// time.
+template <typename T, int ROWS, int DMAX, int THREADS, bool VEC>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+                                          int64_t stride, int rows, int D,
+                                          float mul, float* dst, int pitch) {
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+    constexpr int E = kVec<T>;
+    constexpr int VPR = DMAX / E;  // vectors per row
+    constexpr int PER = ROWS * VPR / THREADS;
+    constexpr int BATCH = PER < 8 ? PER : 8;
+    static_assert(PER % BATCH == 0, "whole batches");
+    for (int b0 = 0; b0 < PER; b0 += BATCH) {
+      uint4 raw[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = (b0 + u) * THREADS + tid;
+        const int r = i / VPR;
+        const int c = (i % VPR) * E;
+        raw[u] = (r < rows && c < D) ? load16(src + r * stride + c)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = (b0 + u) * THREADS + tid;
+        const int r = i / VPR;
+        const int c = (i % VPR) * E;
+        float f[E];
+        unpack16<T>(raw[u], f);
+#pragma unroll
+        for (int e = 0; e < E; ++e) dst[r * pitch + c + e] = f[e] * mul;
+      }
+    }
+  } else {
+    for (int idx = tid; idx < ROWS * DMAX; idx += THREADS) {
+      const int r = idx / DMAX;
+      const int d = idx % DMAX;
+      float x = 0.f;
+      if (r < rows && d < D) x = to_float(src[r * stride + d]) * mul;
+      dst[r * pitch + d] = x;
+    }
+  }
+}
+
+// bf16 tiles for the tensor-core kernels sit in shared memory with kPad
+// elements of row padding (pitch DMAX + kPad), which makes every mma.sync
+// fragment load conflict-free.
+constexpr int kPad = 8;
+
+// Copies a bf16 tile's rows [0, rows) (row stride `stride`, 16-byte
+// aligned) into shared memory with pitch DMAX + kPad; zero past `rows`
+// and D.
+template <int ROWS, int DMAX, int THREADS>
+__device__ __forceinline__ void copy_tile_bf16(
+    const __nv_bfloat16* __restrict__ src, int64_t stride, int rows, int D,
+    __nv_bfloat16* dst) {
+  constexpr int E = kVec<__nv_bfloat16>;
+  constexpr int VPR = DMAX / E;
+  constexpr int PER = ROWS * VPR / THREADS;
+  uint4 raw[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = u * THREADS + threadIdx.x;
+    const int r = i / VPR;
+    const int c = (i % VPR) * E;
+    raw[u] = (r < rows && c < D) ? load16(src + r * stride + c)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = u * THREADS + threadIdx.x;
+    const int r = i / VPR;
+    const int c = (i % VPR) * E;
+    *reinterpret_cast<uint4*>(dst + r * (DMAX + kPad) + c) = raw[u];
+  }
+}
+
+// Two neighbouring bf16 of a row, as one 32-bit fragment register.
+__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// Rows `row` and `row + 1` of column `col` of a bf16 tile with pitch
+// `pitch`, packed as one fragment register (the lower row in the low half):
+// the B operand of a product whose reduction runs down the tile's rows.
+__device__ __forceinline__ unsigned ld_col_pair(const __nv_bfloat16* tile,
+                                                int row, int col, int pitch) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(tile);
+  return unsigned(u[row * pitch + col]) |
+         (unsigned(u[(row + 1) * pitch + col]) << 16);
+}
+
 // One warp-wide tensor-core product D = A B + D, A 16x16 and B 16x8 in
 // bf16, D 16x8 in float (PTX mma.sync.m16n8k16). With g = lane / 4 and
 // t = lane % 4, each lane holds: a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],

@@ -51,6 +51,8 @@
 namespace {
 
 using rtt::from_float;
+using rtt::kPad;
+using rtt::ld32;
 using rtt::kNegInf;
 using rtt::to_float;
 
@@ -65,53 +67,6 @@ constexpr size_t flash_smem_bytes(int dmax) {
                           size_t(kBlockK) * (dmax + 1) +     // k_s
                           size_t(kBlockK) * dmax +           // v_s
                           size_t(kBlockQ) * (kBlockK + 1));  // p_s
-}
-
-// Copies rows [0, rows) of a tile (row stride `stride` elements) into
-// shared memory with row pitch `pitch`, as float times `mul`; rows past
-// `rows` and columns past D are zero. VEC: 16-byte loads, which need
-// 16-byte-aligned rows and D a multiple of kVec<T>.
-template <typename T, int DMAX, bool VEC>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          int64_t stride, int rows, int D,
-                                          float mul, float* dst, int pitch) {
-  const int tid = threadIdx.x;
-  if constexpr (VEC) {
-    constexpr int E = rtt::kVec<T>;
-    constexpr int VPR = DMAX / E;  // vectors per row
-    constexpr int PER = kTile * VPR / kThreads;
-    constexpr int BATCH = PER < 8 ? PER : 8;
-    static_assert(PER % BATCH == 0, "whole batches");
-    for (int b0 = 0; b0 < PER; b0 += BATCH) {
-      uint4 raw[BATCH];
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int i = (b0 + u) * kThreads + tid;
-        const int r = i / VPR;
-        const int c = (i % VPR) * E;
-        raw[u] = (r < rows && c < D) ? rtt::load16(src + r * stride + c)
-                                     : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int i = (b0 + u) * kThreads + tid;
-        const int r = i / VPR;
-        const int c = (i % VPR) * E;
-        float f[E];
-        rtt::unpack16<T>(raw[u], f);
-#pragma unroll
-        for (int e = 0; e < E; ++e) dst[r * pitch + c + e] = f[e] * mul;
-      }
-    }
-  } else {
-    for (int idx = tid; idx < kTile * DMAX; idx += kThreads) {
-      const int r = idx / DMAX;
-      const int d = idx % DMAX;
-      float x = 0.f;
-      if (r < rows && d < D) x = to_float(src[r * stride + d]) * mul;
-      dst[r * pitch + d] = x;
-    }
-  }
 }
 
 template <typename T, int DMAX, bool VEC>
@@ -148,8 +103,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * v_sb + hk * v_sh;
 
   // Q tile, pre-scaled as the Pallas kernel does; zero past Sq and D.
-  load_tile<T, DMAX, VEC>(qb + q0 * q_ss, q_ss, min(kBlockQ, Sq - q0), D,
-                          scale, q_s, QS);
+  rtt::load_tile<T, kTile, DMAX, kThreads, VEC>(
+      qb + q0 * q_ss, q_ss, min(kBlockQ, Sq - q0), D, scale, q_s, QS);
 
   // Causal loop bound: key tiles starting after this tile's last query
   // position are fully masked and never loaded.
@@ -174,8 +129,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = j * kBlockK;
     __syncthreads();  // the previous tile's readers are done
     const int rows = min(kBlockK, Skv - k0);
-    load_tile<T, DMAX, VEC>(kb + k0 * k_ss, k_ss, rows, D, 1.f, k_s, QS);
-    load_tile<T, DMAX, VEC>(vb + k0 * v_ss, v_ss, rows, D, 1.f, v_s, DMAX);
+    rtt::load_tile<T, kTile, DMAX, kThreads, VEC>(kb + k0 * k_ss, k_ss, rows,
+                                                   D, 1.f, k_s, QS);
+    rtt::load_tile<T, kTile, DMAX, kThreads, VEC>(vb + k0 * v_ss, v_ss, rows,
+                                                   D, 1.f, v_s, DMAX);
     __syncthreads();
 
     // S = (Q * scale) K^T for this thread's 4 x 8 scores.
@@ -268,41 +225,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // through shared memory. Tiles sit in shared memory as bf16 with 8
 // elements of row padding, which makes every fragment load conflict-free.
 
-constexpr int kPad = 8;
-
 constexpr size_t mma_smem_bytes(int dmax) {
   return sizeof(__nv_bfloat16) * size_t(3 * kTile) * (dmax + kPad);
-}
-
-// Copies a tile's rows [0, rows) (row stride `stride`, 16-byte aligned)
-// into shared memory with pitch DMAX + kPad; zero past `rows` and D.
-template <int DMAX>
-__device__ __forceinline__ void copy_tile_bf16(
-    const __nv_bfloat16* __restrict__ src, int64_t stride, int rows, int D,
-    __nv_bfloat16* dst) {
-  constexpr int E = rtt::kVec<__nv_bfloat16>;
-  constexpr int VPR = DMAX / E;
-  constexpr int PER = kTile * VPR / kThreads;
-  uint4 raw[PER];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = u * kThreads + threadIdx.x;
-    const int r = i / VPR;
-    const int c = (i % VPR) * E;
-    raw[u] = (r < rows && c < D) ? rtt::load16(src + r * stride + c)
-                                 : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = u * kThreads + threadIdx.x;
-    const int r = i / VPR;
-    const int c = (i % VPR) * E;
-    *reinterpret_cast<uint4*>(dst + r * (DMAX + kPad) + c) = raw[u];
-  }
-}
-
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
 }
 
 template <int DMAX>
@@ -324,7 +248,6 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(rtt_smem);
   __nv_bfloat16* k_s = q_s + kTile * PITCH;
   __nv_bfloat16* v_s = k_s + kTile * PITCH;
-  const unsigned short* v_u16 = reinterpret_cast<const unsigned short*>(v_s);
 
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -339,7 +262,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
   const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-  copy_tile_bf16<DMAX>(qb + q0 * q_ss, q_ss, min(kBlockQ, Sq - q0), D, q_s);
+  rtt::copy_tile_bf16<kTile, DMAX, kThreads>(
+      qb + q0 * q_ss, q_ss, min(kBlockQ, Sq - q0), D, q_s);
 
   const int nk = (Skv + kBlockK - 1) / kBlockK;
   int hi = nk;
@@ -360,8 +284,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = j * kBlockK;
     __syncthreads();  // the previous tile's readers are done
     const int rows = min(kBlockK, Skv - k0);
-    copy_tile_bf16<DMAX>(kb + k0 * k_ss, k_ss, rows, D, k_s);
-    copy_tile_bf16<DMAX>(vb + k0 * v_ss, v_ss, rows, D, v_s);
+    rtt::copy_tile_bf16<kTile, DMAX, kThreads>(kb + k0 * k_ss, k_ss, rows, D,
+                                               k_s);
+    rtt::copy_tile_bf16<kTile, DMAX, kThreads>(vb + k0 * v_ss, v_ss, rows, D,
+                                               v_s);
     __syncthreads();
 
     // S = Q K^T for the warp's 16 rows x 64 keys.
@@ -434,11 +360,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const int col = n * 8 + g;
-        const unsigned bb[2] = {
-            unsigned(v_u16[key * PITCH + col]) |
-                (unsigned(v_u16[(key + 1) * PITCH + col]) << 16),
-            unsigned(v_u16[(key + 8) * PITCH + col]) |
-                (unsigned(v_u16[(key + 9) * PITCH + col]) << 16)};
+        const unsigned bb[2] = {rtt::ld_col_pair(v_s, key, col, PITCH),
+                                rtt::ld_col_pair(v_s, key + 8, col, PITCH)};
         rtt::mma_16816_bf16(acc[n], a, bb);
       }
     }

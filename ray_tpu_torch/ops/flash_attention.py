@@ -1,20 +1,27 @@
-"""Flash-attention forward: a hand-written CUDA kernel for Hopper.
+"""Flash attention, forward and backward: hand-written CUDA kernels for Hopper.
 
-Counterpart of ``ray_tpu/ops/flash_attention.py``'s forward
-(``_flash_fwd_kernel``, launched by ``_flash_fwd``): GQA, causal masking in
+Counterpart of ``ray_tpu/ops/flash_attention.py``: GQA, causal masking in
 global coordinates, O and the per-row logsumexp, with the score matrix
-never written to device memory. The kernel is ``csrc/flash_fwd.cu``; its
-note says what bounds it on the H100 and what its design does about that.
+never written to device memory in either direction.
 
-On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
-it runs :func:`flash_attention_reference`, the plain PyTorch version of the
-same function, which the tests hold against the JAX kernel and
-``chip_smoke.py`` holds the CUDA kernel against. ``launches`` counts kernel
-launches and nothing else.
+- Forward (``_flash_fwd_kernel``): ``csrc/flash_fwd.cu``,
+  :func:`flash_attention_fwd`.
+- Backward (``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` on its
+  KV-head and per-query-head grids): ``csrc/flash_bwd.cu``,
+  :func:`flash_attention_bwd`. delta = rowsum(dO * O) is a torch op, as it
+  is a ``jnp`` op outside Pallas in JAX.
+- :func:`flash_attention` goes through a ``torch.autograd.Function`` (the
+  counterpart of the ``custom_vjp``): the forward saves q, k, v, O and lse,
+  and the backward runs the backward kernels.
 
-The backward kernels (TPU kernels ``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``) and the ``torch.autograd.Function`` around them
-come with the training slice.
+Each kernel's note says what bounds it on the H100 and what its design does
+about that. On a CUDA tensor a wrapper launches its kernel or raises. On a
+CPU tensor it runs the plain PyTorch version of the same function
+(:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`),
+which the tests hold against the JAX kernels and ``chip_smoke.py`` holds the
+CUDA kernels against. The counters count kernel launches and nothing else:
+``launches`` (forward), ``bwd_dq_launches``, ``bwd_dkv_launches`` (KV-head
+grid) and ``bwd_dkv_per_head_launches``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,14 @@ NEG_INF = -1e30  # the Pallas kernels' _NEG_INF
 
 # Kernel launches since import (reset by callers that count a run).
 launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
+bwd_dkv_per_head_launches = 0
+
+# The dK/dV kernel takes the per-query-head grid (H/Hkv times more blocks,
+# group sum outside) when the KV-head grid would have fewer blocks than
+# the H100's 132 SMs. Tests monkeypatch it to force either grid.
+DKV_GROUPED_MIN_BLOCKS = 132
 
 
 def masked_attention_f32(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,6 +173,213 @@ def flash_attention_fwd(
     return out, lse
 
 
+def flash_attention_bwd_reference(
+    q: torch.Tensor,     # [B, Sq, H, D]
+    k: torch.Tensor,     # [B, Skv, Hkv, D]
+    v: torch.Tensor,     # [B, Skv, Hkv, D]
+    o: torch.Tensor,     # [B, Sq, H, D], the forward's output
+    lse: torch.Tensor,   # [B*H, Sq] float32, the forward's logsumexp
+    do: torch.Tensor,    # [B, Sq, H, D], the gradient of o
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward kernels, written out in
+    float32 with their formulas (not autograd through the forward): P =
+    exp(S - lse) with masked entries 0, dV = P^T dO, dP = dO V^T, dS = P (dP
+    - delta) with delta = rowsum(dO O), dQ = dS K scale, dK = dS^T Q scale,
+    dK/dV summed over each GQA group. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    rep = H // Hkv
+    qh = q.float().transpose(1, 2)                                   # [B,H,Sq,D]
+    kh = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)     # [B,H,Skv,D]
+    vh = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    doh = do.float().transpose(1, 2)
+    delta = (doh * o.float().transpose(1, 2)).sum(-1)                # [B,H,Sq]
+    s = (qh @ kh.transpose(-1, -2)) * scale
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        k_pos = kv_offset + torch.arange(Skv, device=q.device)[None, :]
+        s = s.masked_fill(~(k_pos <= q_pos), float("-inf"))
+    p = torch.exp(s - lse.reshape(B, H, Sq, 1))
+    dv = p.transpose(-1, -2) @ doh
+    ds = p * (doh @ vh.transpose(-1, -2) - delta[..., None])
+    dq = (ds @ kh) * scale
+    dk = (ds.transpose(-1, -2) @ qh) * scale
+
+    def group_sum(x):  # [B, H, Skv, D] -> [B, Skv, Hkv, D]
+        return x.reshape(B, Hkv, rep, Skv, D).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), group_sum(dk).to(k.dtype),
+            group_sum(dv).to(v.dtype))
+
+
+def bwd_tile_rows(D: int) -> int:
+    """Rows of the backward kernels' tiles: a copy of ``tile_rows`` in
+    ``csrc/flash_bwd.cu`` (the switch needs it on the CPU too, where no
+    library is built). ``test_bwd_tile_rows_match_the_kernels`` holds it
+    against the library's ``rtt_flash_bwd_tile_rows`` on the card."""
+    return 64 if D <= 128 else 32
+
+
+def dkv_per_head(B: int, H: int, Hkv: int, Skv: int, D: int) -> bool:
+    """Whether dK/dV takes the per-query-head grid (see
+    ``DKV_GROUPED_MIN_BLOCKS``)."""
+    tiles = -(-Skv // bwd_tile_rows(D))
+    return H > Hkv and B * Hkv * tiles < DKV_GROUPED_MIN_BLOCKS
+
+
+def _bwd_args(q, k, causal, scale, q_offset, kv_offset):
+    """The backward entry points' dtype code, dimensions and flags."""
+    B, Sq, H, D = q.shape
+    return (_build.DTYPE_CODES[q.dtype], (B, H, k.shape[2], Sq, k.shape[1], D),
+            (float(scale), int(bool(causal)), int(q_offset), int(kv_offset)))
+
+
+def launch_bwd_dq(lib, q, k, v, do, lse, delta, *, causal, scale, q_offset,
+                  kv_offset, stream):
+    """Launch ``csrc/flash_bwd.cu``'s dQ kernel on contiguous inputs
+    through ``lib``; returns dq allocated here."""
+    code, dims, flags = _bwd_args(q, k, causal, scale, q_offset, kv_offset)
+    dq = torch.empty_like(q)
+    strides = (ctypes.c_int64 * 15)(
+        *[s for t in (q, k, v, do, dq) for s in t.stride()[:3]])
+    _build.check(lib, lib.rtt_flash_bwd_dq(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+        ctypes.addressof(strides), *flags, stream), "flash_bwd_dq")
+    return dq
+
+
+def launch_bwd_dkv(lib, q, k, v, do, lse, delta, *, causal, scale, q_offset,
+                   kv_offset, per_head, stream):
+    """Launch ``csrc/flash_bwd.cu``'s dK/dV kernel on contiguous inputs
+    through ``lib``; returns (dk, dv) allocated here: k's shape and dtype,
+    or float32 [B, Skv, H, D] per query head when ``per_head``."""
+    code, dims, flags = _bwd_args(q, k, causal, scale, q_offset, kv_offset)
+    B, Sq, H, D = q.shape
+    if per_head:
+        shape, dtype = (B, k.shape[1], H, D), torch.float32
+    else:
+        shape, dtype = k.shape, k.dtype
+    dk = torch.empty(shape, dtype=dtype, device=q.device)
+    dv = torch.empty(shape, dtype=dtype, device=q.device)
+    strides = (ctypes.c_int64 * 18)(
+        *[s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]])
+    _build.check(lib, lib.rtt_flash_bwd_dkv(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dims, ctypes.addressof(strides), *flags, int(per_head), stream),
+        "flash_bwd_dkv")
+    return dk, dv
+
+
+def launch_bwd(lib, q, k, v, do, lse, delta, *, per_head, **kw):
+    """Both backward kernels through ``lib``: (dq, dk, dv), dk/dv summed
+    over each GQA group (outside the kernel in the per-head mode, as in
+    JAX)."""
+    dq = launch_bwd_dq(lib, q, k, v, do, lse, delta, **kw)
+    dk, dv = launch_bwd_dkv(lib, q, k, v, do, lse, delta, per_head=per_head,
+                            **kw)
+    if per_head:
+        B, Skv, Hkv, D = k.shape
+        rep = q.shape[2] // Hkv
+        dk = dk.view(B, Skv, Hkv, rep, D).sum(3).to(k.dtype)
+        dv = dv.view(B, Skv, Hkv, rep, D).sum(3).to(v.dtype)
+    return dq, dk, dv
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in float32, [B*H, Sq] like lse (a torch op,
+    as it is a jnp op outside Pallas in JAX)."""
+    B, Sq, H, _ = o.shape
+    delta = (do.float() * o.float()).sum(-1)
+    return delta.transpose(1, 2).reshape(B * H, Sq).contiguous()
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,     # [B, Sq, H, D]
+    k: torch.Tensor,     # [B, Skv, Hkv, D]
+    v: torch.Tensor,     # [B, Skv, Hkv, D]
+    o: torch.Tensor,     # [B, Sq, H, D]
+    lse: torch.Tensor,   # [B*H, Sq] float32
+    do: torch.Tensor,    # [B, Sq, H, D]
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention from the forward's O and lse. The kernels
+    on CUDA tensors (dQ, then dK/dV on the KV-head or the per-query-head
+    grid by :func:`dkv_per_head`), the plain version on CPU tensors;
+    anything else raises."""
+    global bwd_dq_launches, bwd_dkv_launches, bwd_dkv_per_head_launches
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if lse.shape != (B * H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [{B * H}, {Sq}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    scale = scale if scale is not None else D ** -0.5
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              kv_offset=kv_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.dtype not in _build.DTYPE_CODES or not (
+            q.dtype == k.dtype == v.dtype == do.dtype):
+        raise ValueError(f"flash_attention_bwd takes float32 or bfloat16 "
+                         f"q/k/v/do of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}, {do.dtype}")
+    if not all(t.is_contiguous() for t in (q, k, v, lse)):
+        raise ValueError("flash_attention_bwd needs contiguous q, k, v, lse")
+    do = do.contiguous()
+    per_head = dkv_per_head(B, H, k.shape[2], k.shape[1], D)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        out = launch_bwd(lib, q, k, v, do, lse, bwd_delta(o, do),
+                         per_head=per_head, stream=_build.current_stream(q),
+                         **kw)
+    bwd_dq_launches += 1
+    if per_head:
+        bwd_dkv_per_head_launches += 1
+    else:
+        bwd_dkv_launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of JAX's ``custom_vjp`` around the Pallas kernels:
+    the forward kernel saves q, k, v, O and lse; the backward kernels
+    recompute P from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, kv_offset):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                       q_offset=q_offset, kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+                      kv_offset=kv_offset)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -169,6 +391,6 @@ def flash_attention(
     kv_offset: int = 0,
 ) -> torch.Tensor:
     """Flash attention with GQA and global-coordinate causal masking (the
-    JAX signature, without its TPU block sizes): returns [B, Sq, H, D]."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                               q_offset=q_offset, kv_offset=kv_offset)[0]
+    JAX signature, without its TPU block sizes): returns [B, Sq, H, D],
+    differentiable in q, k and v through the backward kernels."""
+    return _FlashAttention.apply(q, k, v, causal, scale, q_offset, kv_offset)

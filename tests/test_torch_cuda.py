@@ -1,14 +1,21 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips without a CUDA card (the CPU tests in
-test_torch_ops.py hold the plain versions against the JAX kernels). On the
-H100: ``python -m pytest -m cuda tests/test_torch_cuda.py``. The cases
-reach every path of both kernels: float32 and bf16, the tensor-core and
-scalar flash kernels, 16-byte and element-wise loads (odd D, rows off a
-16-byte boundary), ragged tiles, offsets, fully masked tiles, any page
-size, and the ``layer=`` form. float32 tolerances are the JAX kernel
-tests'; bf16 outputs may differ by one bf16 ulp below |O| = 4.
+test_torch_ops.py and test_torch_flash_bwd.py hold the plain versions
+against the JAX kernels). On the H100: ``python -m pytest -m cuda
+tests/test_torch_cuda.py``. The cases reach every path of the kernels:
+float32 and bf16, the tensor-core and scalar kernels, 16-byte and
+element-wise loads (odd D, rows off a 16-byte boundary), ragged tiles,
+offsets, fully masked tiles, both dK/dV grids, any page size, and the
+``layer=`` form. float32 tolerances are the JAX kernel tests'; bf16
+outputs may differ by one bf16 ulp below |O| = 4, and bf16 gradients by
+1% of their largest value (the tensor-core backward rounds P and dS to
+bf16 as product operands). The last tests drive the training path on the
+card: gradients through the kernels, and a small train step against the
+CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -108,6 +115,133 @@ def test_paged_kernel_matches_plain_version(cuda, case, dtype):
     assert pa.launches == before + 1
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("per_head", [False, True], ids=["grouped",
+                                                         "per_head"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH))
+def test_flash_bwd_kernels_match_plain_version(cuda, monkeypatch, case,
+                                               dtype, per_head):
+    B, Sq, Skv, H, Hkv, D, causal, qo, ko, mis = FLASH[case]
+    monkeypatch.setattr(fa, "DKV_GROUPED_MIN_BLOCKS", 10 ** 9 * per_head)
+    rng = np.random.RandomState(len(case))
+    q = _randn(rng, (B, Sq, H, D), dtype, cuda, misalign=mis)
+    k = _randn(rng, (B, Skv, Hkv, D), dtype, cuda)
+    v = _randn(rng, (B, Skv, Hkv, D), dtype, cuda)
+    do = _randn(rng, (B, Sq, H, D), dtype, cuda, misalign=mis)
+    kw = dict(causal=causal, q_offset=qo, kv_offset=ko)
+    o, lse = fa.flash_attention_reference(q, k, v, **kw)
+    counts = (fa.bwd_dq_launches, fa.bwd_dkv_launches,
+              fa.bwd_dkv_per_head_launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    per = H > Hkv and per_head
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches,
+            fa.bwd_dkv_per_head_launches) == (
+        counts[0] + 1, counts[1] + (not per), counts[2] + per)
+    rel = 2e-5 if dtype == torch.float32 else 1e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rel * max(w.float().abs().max().item(), 1e-3), (
+            name, err)
+
+
+def test_bwd_tile_rows_match_the_kernels(cuda):
+    """The grid switch's copy of the backward kernels' tile rows agrees
+    with the library's rule at every head dim it takes."""
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.library()
+    got = [lib.rtt_flash_bwd_tile_rows(d) for d in range(1, 257)]
+    assert got == [fa.bwd_tile_rows(d) for d in range(1, 257)]
+
+
+def test_gradients_flow_through_the_flash_kernels(cuda):
+    """The forward kernel's output has a grad_fn on the card: a loss
+    through ``flash_attention`` gives q, k and v the plain version's
+    gradients, through the forward and both backward kernels."""
+    rng = np.random.RandomState(4)
+    leaves = [_randn(rng, shape, torch.float32, cuda).requires_grad_()
+              for shape in ((2, 96, 4, 64), (2, 96, 2, 64), (2, 96, 2, 64))]
+    counts = (fa.launches, fa.bwd_dq_launches,
+              fa.bwd_dkv_launches + fa.bwd_dkv_per_head_launches)
+    out = fa.flash_attention(*leaves, causal=True)
+    assert out.grad_fn is not None
+    (out ** 2).sum().backward()
+    got = [t.grad for t in leaves]
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    ref, _ = fa.flash_attention_reference(*plain, causal=True)
+    (ref ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_dq_launches,
+            fa.bwd_dkv_launches + fa.bwd_dkv_per_head_launches) == tuple(
+        c + 1 for c in counts)
+    for g, t in zip(got, plain):
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g, t.grad, atol=3e-5, rtol=3e-5)
+
+
+def _flat_cpu(tree):
+    """{name: CPU copy} of a parameter tree's tensors."""
+    out = {k: v.detach().to("cpu", copy=True) for k, v in tree.items()
+           if torch.is_tensor(v)}
+    out.update({f"layers.{k}": v.detach().to("cpu", copy=True)
+                for k, v in tree["layers"].items()})
+    return out
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three steps of CompiledTrainStep in float32 (TF32 off) on the card
+    and on the CPU from the same weights and tokens. Losses within 1e-4;
+    step-1 gradients (same weights on both) within 2e-5 of each leaf's
+    largest; the card's weights within 1e-6 of AdamW run on the CPU on the
+    card's gradients, so they follow from those gradients alone; after
+    step 3, all but 0.1% of each leaf's elements within 2e-5 of the CPU's.
+    AdamW divides by the root of the second moment, so an element whose
+    gradient or first moment is near the level of the devices' rounding
+    takes a step of another size on each."""
+    from ray_tpu_torch.models import LlamaConfig, init_params
+    from ray_tpu_torch.train import AdamW, CompiledTrainStep
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), loss_chunk=8)
+    tokens = torch.tensor(np.random.RandomState(2).randint(0, 256, (2, 33)),
+                          dtype=torch.int32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+        params = {k: (v.to(dev) if torch.is_tensor(v) else
+                      {n: t.to(dev) for n, t in v.items()})
+                  for k, v in params.items()}
+        step = CompiledTrainStep(cfg, device=dev)
+        state = AdamW().init(params)
+        before = fa.bwd_dq_launches
+        losses, grads = [], []
+        for _ in range(3):
+            losses.append(step(params, state, tokens)[2].item())
+            grads.append(_flat_cpu(step.grads))
+        runs[dev] = (losses, _flat_cpu(params), fa.bwd_dq_launches - before,
+                     grads)
+    assert runs["cuda"][2] == 3 * cfg.num_layers and runs["cpu"][2] == 0
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    for k, want in runs["cpu"][3][0].items():
+        d = (runs["cuda"][3][0][k] - want).abs().max().item()
+        assert d <= 2e-5 * want.abs().max().item(), (k, d)
+    replay = _flat_cpu(init_params(cfg, torch.Generator().manual_seed(3),
+                                   "cpu"))
+    opt = AdamW()
+    state = opt.init(replay)
+    for g in runs["cuda"][3]:
+        opt.update(replay, g, state)
+    for k, want in runs["cpu"][1].items():
+        got = runs["cuda"][1][k]
+        assert (replay[k] - got).abs().max().item() <= 1e-6, k
+        d = (got - want).abs()
+        assert (d > 2e-5).float().mean().item() <= 1e-3, (k, d.max())
 
 
 def test_paged_kernel_layer_form_and_refusals(cuda):
