@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
      for flash, F.scaled_dot_product_attention as a yardstick (the port
      never calls it);
   3b. each flash backward kernel (dQ, dK/dV on the KV-head grid, dK/dV per
-     query head) the same way at S = 512 and 2048, through the wrapper
-     flash_attention_bwd with each grid forced, with the backward of
-     F.scaled_dot_product_attention as the yardstick;
+     query head) the same way at B = 1 and 8, S = 512 and 2048, through the
+     wrapper flash_attention_bwd with each grid forced, with the backward
+     of F.scaled_dot_product_attention as the yardstick; both dK/dV grids
+     timed in turns, and the grid rule held to the faster one (10%) at
+     S = 2048;
   4. a small model (2 layers, head dim 128) in float32 with TF32 off:
      prefill and decode logits and greedy tokens of the CUDA engine
      against the same weights run with device="cpu";
@@ -32,8 +34,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      remat, loss_chunk 512, AdamW, B = 1, S = 2048): loss and gradient
      norms with the flash kernels against plain attention, then 2 warm-up
      and 5 measured steps (ms/step, tokens/s, MFU, peak memory) and one
-     step at S = 512, with every launch counter reset just before and read
-     just after, and a profiler breakdown of one step;
+     step at B = 8, S = 512 (the KV-head dK/dV grid), with every launch
+     counter reset just before and read just after, and a profiler
+     breakdown of one step;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -123,7 +126,7 @@ def phase_kernels():
     # |O| < 4 (both sides accumulate in float32 and round once).
     B, H, Hkv, D = 1, 32, 8, 128
     tol_o, tol_lse = 2e-2, 1e-3
-    for S in (128, 512):
+    for S in (128, 512, 2048):
         q, k, v = randn(B, S, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         ro, rl = fa.flash_attention_reference(q, k, v, causal=True)
@@ -180,12 +183,15 @@ def phase_kernels():
 
 
 def phase_backward_kernels():
-    """The three backward kernels at the 8B attention shape (B=1, H=32,
-    Hkv=8, D=128, causal, bf16), S = 512 and 2048. Correctness through the
-    wrapper, ``flash_attention_bwd``, with each dK/dV grid forced by the
-    switch constant and a non-contiguous dO: dq, dk and dv each against
+    """The backward kernels at the 8B attention shape (H=32, Hkv=8, D=128,
+    causal, bf16) at B = 1 and 8, S = 512 and 2048. Correctness through the
+    wrapper, ``flash_attention_bwd``, with each dK/dV grid forced
+    (``DKV_GRID``) and a non-contiguous dO: dq, dk and dv each against
     ``flash_attention_bwd_reference``. Times of each kernel alone through
-    its launcher, and of the wrapper as the main path runs it."""
+    its launcher, of the wrapper as the main path runs it, and of the dK/dV
+    stage on each grid (the per-head grid with its group sum): at S = 2048
+    the phase fails if the grid rule picks a grid slower than the other by
+    more than 10%."""
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
     import torch.nn.functional as F
@@ -194,18 +200,18 @@ def phase_backward_kernels():
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16 = torch.bfloat16
     lib = _build.library()
-    B, H, Hkv, D = 1, 32, 8, 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    H, Hkv, D = 32, 8, 128
     # bf16 tolerance: max|d| <= 1e-2 max|ref| for each of dq, dk and dv.
     # The tensor-core kernels round P and dS to bf16 (relative step 2^-8 =
     # 3.9e-3) as product operands, as flash-attention-2 does, and each
     # gradient sums up to S such terms; the plain version keeps them in
     # float32.
     rel_tol = 1e-2
-    # The switch constant that forces each dK/dV grid.
-    forced = {"flash_bwd_dkv": 0, "flash_bwd_dkv_per_head": 10 ** 9}
-    default_min_blocks = fa.DKV_GROUPED_MIN_BLOCKS
+    grids = {"flash_bwd_dkv": "kv_head", "flash_bwd_dkv_per_head": "per_head"}
     results = {}
-    for S in (512, 2048):
+    failures = []
+    for B, S in ((1, 512), (8, 512), (1, 2048), (8, 2048)):
         q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(bf16)
                  for _ in range(2))
         k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf16)
@@ -217,11 +223,12 @@ def phase_backward_kernels():
         ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                causal=True)
         ref_max = [w.float().abs().max().item() for w in ref]
+        tag = f"B={B} S={S}"
 
         # Correctness: the wrapper on each grid.
         errs = {}
-        for name, min_blocks in forced.items():
-            fa.DKV_GROUPED_MIN_BLOCKS = min_blocks
+        for name, grid in grids.items():
+            fa.DKV_GRID = grid
             try:
                 before = train_launches()
                 got = fa.flash_attention_bwd(q, k, v, o, lse, do_t,
@@ -229,27 +236,29 @@ def phase_backward_kernels():
                 torch.cuda.synchronize()
                 ran = {c: n - before[c] for c, n in train_launches().items()}
             finally:
-                fa.DKV_GROUPED_MIN_BLOCKS = default_min_blocks
+                fa.DKV_GRID = None
             want = {c: int(c in ("flash_bwd_dq", name)) for c in ran}
-            assert ran == want, (name, S, ran, want)
+            assert ran == want, (name, tag, ran, want)
             e = [(g.float() - w.float()).abs().max().item()
                  for g, w in zip(got, ref)]
-            log(f"[kernels] flash_attention_bwd S={S}, {name} grid forced: "
+            log(f"[kernels] flash_attention_bwd {tag}, {name} grid forced: "
                 f"max|d| dq {e[0]:.3e}, dk {e[1]:.3e}, dv {e[2]:.3e} (tol "
                 f"{rel_tol} x max|ref| {ref_max[0]:.3e}, {ref_max[1]:.3e}, "
                 f"{ref_max[2]:.3e}); launches {ran}")
-            assert all(x <= rel_tol * m for x, m in zip(e, ref_max)), (
-                name, S, e, ref_max)
+            if not all(x <= rel_tol * m for x, m in zip(e, ref_max)):
+                failures.append((name, tag, e, ref_max))
             errs["flash_bwd_dq"] = max(errs.get("flash_bwd_dq", 0.0), e[0])
             errs[name] = max(e[1], e[2])
+        del got, ref
 
         # Times: each kernel alone, the plain backward, SDPA's backward,
-        # and the wrapper as the main path runs it (the switch's grid).
+        # the wrapper as the main path runs it, and the dK/dV stage on each
+        # grid as the wrapper runs it.
         delta = fa.bwd_delta(o, do)
         kw = dict(causal=True, scale=D ** -0.5, q_offset=0, kv_offset=0,
                   stream=_build.current_stream(q))
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
-            q, k, v, o, lse, do, causal=True), reps=5)
+            q, k, v, o, lse, do, causal=True), reps=3, warmup=1)
         wrapper_ms = cuda_ms(lambda: fa.flash_attention_bwd(
             q, k, v, o, lse, do_t, causal=True))
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -259,6 +268,7 @@ def phase_backward_kernels():
         gout = do.transpose(1, 2).contiguous()
         lib_ms = cuda_ms(lambda: torch.autograd.grad(
             out, (qt, kt, vt), gout, retain_graph=True))
+        del out, qt, kt, vt, gout
         pairs = S * (S + 1) // 2
         in_bytes = 2 * 2 * (q.numel() + k.numel()) + 2 * 4 * B * H * S
         timed = {
@@ -276,20 +286,50 @@ def phase_backward_kernels():
         }
         for name, (fn, products, out_bytes) in timed.items():
             ms = cuda_ms(fn)
-            b_ms, b_by = bound(in_bytes + out_bytes,
-                               products * 2.0 * D * pairs * B * H,
-                               BF16_FLOPS_PER_S)
-            log(f"[kernels] {name} S={S}: kernel alone {ms:.4f} ms, plain "
-                f"backward {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
-                f"bound {b_ms:.5f} ms ({b_by})")
-            results[f"{name}_S{S}"] = dict(
+            flops = products * 2.0 * D * pairs * B * H
+            b_ms, b_by = bound(in_bytes + out_bytes, flops, BF16_FLOPS_PER_S)
+            log(f"[kernels] {name} {tag}: kernel alone {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain backward "
+                f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by})")
+            results[f"{name}_B{B}_S{S}"] = dict(
                 max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        grid = ("per-query-head" if fa.dkv_per_head(B, H, Hkv, S, D)
-                else "KV-head")
-        log(f"[kernels] flash_attention_bwd S={S} as the main path runs it "
+
+        # The dK/dV stage on each grid, in turns: KV-head, per-head (kernel
+        # and group sum), per-head, KV-head.
+        def stage(per_head):
+            def run():
+                dk, dv = fa.launch_bwd_dkv(lib, q, k, v, do, lse, delta,
+                                           per_head=per_head, **kw)
+                if per_head:
+                    fa.group_sum_dkv(dk, dv, k)
+            return run
+
+        turns = [cuda_ms(stage(p)) for p in (False, True, True, False)]
+        kv_ms, ph_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        picked = fa.dkv_per_head(B, H, Hkv, S, S, D, dtype=bf16, causal=True,
+                                 sms=sms)
+        est = fa.dkv_grid_estimates(B, H, Hkv, S, S, D, dtype=bf16,
+                                    causal=True, sms=sms)
+        got_ms = ph_ms if picked else kv_ms
+        ok = got_ms <= 1.1 * min(kv_ms, ph_ms)
+        log(f"[kernels] dK/dV grid rule {tag}: KV-head stage "
+            f"{turns[0]:.4f}/{turns[3]:.4f} ms, per-head stage with its group "
+            f"sum {turns[1]:.4f}/{turns[2]:.4f} ms (in turns); estimates "
+            f"{est[0] * 1e3:.4f} / {est[1] * 1e3:.4f} ms; the rule picks "
+            f"{'per-head' if picked else 'KV-head'}: "
+            f"{'within' if ok else 'NOT within'} 10% of the faster grid")
+        if S == 2048 and not ok:
+            failures.append(("grid rule", tag, kv_ms, ph_ms, picked))
+        grid = "per-query-head" if picked else "KV-head"
+        log(f"[kernels] flash_attention_bwd {tag} as the main path runs it "
             f"(delta, dQ, dK/dV on the {grid} grid): {wrapper_ms:.4f} ms "
-            f"against sdpa backward {lib_ms:.4f} ms")
+            f"against sdpa backward {lib_ms:.4f} ms "
+            f"({wrapper_ms / lib_ms:.2f}x)")
+        del q, k, v, do, do_t, o, lse, delta
+        torch.cuda.empty_cache()
+    assert not failures, failures
     return results
 
 
@@ -589,6 +629,7 @@ def train_launches(reset: bool = False):
 def phase_train(card: str):
     """Llama-3-8B at full width and depth trained on the card."""
     from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.train import CompiledTrainStep
 
     cfg = LlamaConfig.llama3_8b()  # remat "full", loss_chunk 512
@@ -659,7 +700,9 @@ def phase_train(card: str):
         per_step.append({k: v - before[k]
                          for k, v in train_launches().items()})
         assert np.isfinite(loss), (i, loss)
-    short = tokens[:, :513]
+    # B = 8, S = 512: the shape where the grid rule takes the KV-head grid.
+    short = torch.tensor(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (8, 513)), dtype=torch.int32, device="cuda")
     before = train_launches()
     _, _, loss_short = step(params, opt_state, short)
     short_launches = {k: v - before[k] for k, v in train_launches().items()}
@@ -672,12 +715,20 @@ def phase_train(card: str):
         cfg.num_heads * cfg.dh)
     mfu = tps * flops_per_token / BF16_FLOPS_PER_S
     L = cfg.num_layers
-    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "flash_bwd_dkv_per_head": 0}
-    want_short = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": 0,
-                  "flash_bwd_dkv_per_head": L}
+
+    def want_for(b, s):  # launches of one step: the grid rule's dK/dV grid
+        per_head = fa.dkv_per_head(
+            b, cfg.num_heads, cfg.num_kv_heads, s, s, cfg.dh,
+            dtype=torch.bfloat16, causal=True,
+            sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        return {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                "flash_bwd_dkv": 0 if per_head else L,
+                "flash_bwd_dkv_per_head": L if per_head else 0}
+
+    want = want_for(B, S)
+    want_short = want_for(short.shape[0], short.shape[1] - 1)
     log(f"[train] losses over 2 warm-up + 5 measured steps (same batch): "
-        f"{[round(x, 4) for x in losses]}; S=512 step loss "
+        f"{[round(x, 4) for x in losses]}; B=8 S=512 step loss "
         f"{loss_short.item():.4f}")
     log(f"[train] B=1 S=2048 on {card}: {ms:.1f} ms/step (median of 5, "
         f"synchronised; all {[round(t * 1e3, 1) for t in times]}), "
@@ -686,7 +737,7 @@ def phase_train(card: str):
         f"peak {peak / gb:.2f} GB allocated, "
         f"{torch.cuda.max_memory_reserved() / gb:.2f} GB reserved")
     log(f"[train] launches per S=2048 step: {per_step[-1]} (want {want}); "
-        f"S=512 step: {short_launches} (want {want_short}); whole run "
+        f"B=8 S=512 step: {short_launches} (want {want_short}); whole run "
         f"{launches}")
     assert all(p == want for p in per_step), per_step
     assert short_launches == want_short, short_launches
@@ -838,7 +889,7 @@ def main() -> int:
     train = phase_train(card)
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
-    attn = "B=1 H=32 Hkv=8 D=128 causal bf16"
+    attn = "H=32 Hkv=8 D=128 causal bf16"
     sdpa_bwd = "backward of F.scaled_dot_product_attention (dQ, dK, dV)"
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
@@ -846,20 +897,20 @@ def main() -> int:
              launches=launches["flash_fwd"] + train["flash_fwd"],
              launches_by_path={"serve": launches["flash_fwd"],
                                "train": train["flash_fwd"]},
-             shape="S=512 " + attn, **kern["flash_fwd_S512"]),
+             shape="B=1 S=2048 " + attn, **kern["flash_fwd_S2048"]),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=fa_src + "144", launches=train["flash_bwd_dq"],
-             shape="S=2048 " + attn, library=sdpa_bwd,
-             **kern["flash_bwd_dq_S2048"]),
+             shape="B=1 S=2048 " + attn, library=sdpa_bwd,
+             **kern["flash_bwd_dq_B1_S2048"]),
         dict(name="flash_bwd_dkv", route="cuda", source=src + "flash_bwd.cu",
              replaces=fa_src + "187", launches=train["flash_bwd_dkv"],
-             shape="S=2048 KV-head grid " + attn, library=sdpa_bwd,
-             **kern["flash_bwd_dkv_S2048"]),
+             shape="B=8 S=512 KV-head grid " + attn, library=sdpa_bwd,
+             **kern["flash_bwd_dkv_B8_S512"]),
         dict(name="flash_bwd_dkv_per_head", route="cuda",
              source=src + "flash_bwd.cu", replaces=fa_src + "344",
              launches=train["flash_bwd_dkv_per_head"],
-             shape="S=512 per-query-head grid " + attn, library=sdpa_bwd,
-             **kern["flash_bwd_dkv_per_head_S512"]),
+             shape="B=1 S=2048 per-query-head grid " + attn,
+             library=sdpa_bwd, **kern["flash_bwd_dkv_per_head_B1_S2048"]),
         dict(name="paged_decode", route="cuda",
              source=src + "paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:28",

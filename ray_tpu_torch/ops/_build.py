@@ -130,8 +130,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rtt_flash_bwd_dkv.argtypes = [
         i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, i, i, i, i, p]
     lib.rtt_flash_bwd_dkv.restype = i
-    lib.rtt_flash_bwd_tile_rows.argtypes = [i]
+    lib.rtt_flash_bwd_tile_rows.argtypes = [i, i, i]
     lib.rtt_flash_bwd_tile_rows.restype = i
+    lib.rtt_flash_bwd_dkv_blocks_per_sm.argtypes = [i, i, p]
+    lib.rtt_flash_bwd_dkv_blocks_per_sm.restype = i
+    lib.rtt_wgmma_probe.argtypes = [p, p, p, p, p, i, p]
+    lib.rtt_wgmma_probe.restype = i
     lib.rtt_paged_decode.argtypes = [
         i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
     lib.rtt_paged_decode.restype = i

@@ -1,11 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a): dQ, and dK/dV.
 //
 // Replaces the Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
-// `_flash_bwd_dq_kernel` (launched by `_flash_bwd`, dQ) and
-// `_flash_bwd_dkv_kernel`, which `_flash_bwd` launches on two grids: the
-// KV-head grid, where a block sums the GQA group's `rep` query heads in its
-// float accumulator, and the per-query-head grid, whose group sum runs
-// outside the kernel. Same function: with P = exp(S - lse) recomputed from
+// `_flash_bwd_dq_kernel` (:144, launched by `_flash_bwd` at :272, dQ) and
+// `_flash_bwd_dkv_kernel` (:187), which `_flash_bwd` launches on two grids:
+// the KV-head grid (:305), where a block sums the GQA group's `rep` query
+// heads in its float accumulator, and the per-query-head grid (:344), whose
+// group sum runs outside the kernel. Same function: with P = exp(S - lse) recomputed from
 // the forward's per-row logsumexp (S = Q K^T * scale, masked entries 0),
 // dP = dO V^T and dS = P * (dP - delta) where delta = rowsum(dO * O),
 //   dQ = dS K * scale,  dK = dS^T Q * scale,  dV = P^T dO,
@@ -20,30 +20,48 @@
 //
 // What bounds it on the H100: dQ does three products per causal
 // (query, key) pair and dK/dV four, 2 * D flops each, on inputs of
-// (Sq + 2 Skv) * H * D elements, so at the 8B training shape (S = 2048,
-// D = 128, bf16) both are bound by operations (~1,000 flops per byte moved),
-// not by bytes. The score and probability tiles must never reach device
-// memory (S^2 per head); every block recomputes its tiles on chip, and the
-// two kernels never write the same output, so there are no atomics and the
-// sums are deterministic.
-// - dQ: one block owns a 64-row Q tile of one (batch, head) with its dO
-//   tile, and loops over the K/V tiles up to the causal bound.
-// - dK/dV: one block owns a 64-row K/V tile of one (batch, KV head) and,
-//   for each query head of the group, streams Q/dO tiles through shared
-//   memory from the causal lower bound on; dK and dV stay in float
-//   registers until the one write. The TPU kept the whole [rep, Sq, D]
-//   group resident in VMEM and needed the per-head grid when it did not
-//   fit; streamed tiles always fit here, so the per-head mode is kept for
-//   what it still buys on this card: rep times more blocks when the KV-head
-//   grid would leave SMs idle (the wrapper's switch).
+// (Sq + 2 Skv) * H * D elements, so at the 8B training shape (B = 1,
+// S = 2048, H = 32, D = 128, bf16) both are bound by operations (~1,000
+// flops per byte moved): 0.052 ms (dQ) and 0.070 ms (dK/dV) at 989 TFLOP/s.
+// The score and probability tiles must never reach device memory (S^2 per
+// head); every block recomputes its tiles on chip, and the two kernels
+// never write the same output, so there are no atomics and the sums are
+// deterministic. (Fusing dQ into dK/dV with float atomics, as
+// flash-attention-2/3 do, would trade that away.)
+//
 // Two versions of each, chosen from the inputs at each launch:
-// - bf16 with D a multiple of 16 up to 128 and 16-byte-aligned rows (the 8B
-//   model's shape): every product on the tensor cores (mma.sync m16n8k16,
-//   bf16 in, float accumulate), four warps each owning 16 rows of the
-//   block's tile; P and dS are rounded to bf16 as product operands, as in
-//   flash-attention-2, and stay in float for dS = P * (dP - delta).
-//   Shared memory: four bf16 tiles [64][D+8] and the Q tile's lse and delta
-//   (dK/dV), 70,144 bytes at D = 128.
+// - bf16 with D a multiple of 16 up to 128, 16-byte-aligned rows and even
+//   output strides (the 8B model's shape): the wgmma kernels below, for
+//   Hopper. What holds a tensor-core kernel back here, and what they do:
+//   1. The longest block chain. A causal dK/dV block of key tile 0 walks
+//      every query tile of every head it sums (rep x Sq/64 steps on the
+//      KV-head grid); the grid ends with its longest block. The kernel
+//      dispatches key tile 0 first (the tile is blockIdx.y, the head x),
+//      and the wrapper picks the KV-head or per-query-head grid by the
+//      larger of the longest chain and the total steps over the resident
+//      blocks (flash_attention.py: dkv_grid_estimates).
+//   2. Nothing in flight while the tensor cores work. Streamed tiles (Q,
+//      dO, lse, delta for dK/dV; K, V for dQ) go through a ring of
+//      kStages = 2 stages filled by cp.async, the next tile's copy running
+//      under this tile's products (a third stage measured no faster and
+//      costs registers to its addressing). cp.async and not TMA: it zero-fills ragged rows, columns
+//      past D and lse/delta rows one thread at a time, needs no tensor map
+//      (no cuTensorMapEncodeTiled from libcuda, and lse/delta rows of Sq
+//      floats need not sit on the 16 bytes TMA wants), and costs 8 copy
+//      instructions a thread a step.
+//   3. Fragment loads 32 bits at a time from shared memory, and two 16-bit
+//      loads for a transposed operand. wgmma reads both shared operands
+//      itself through descriptors, the transposed ones (dO, Q, K as B of
+//      the accumulating products) as MN-major tiles of the same swizzled
+//      layout: no fragment loads at all.
+//   4. mma.sync m16n8k16 only. Every product is wgmma (m64n64k16 for the
+//      scores, m64nDk16 for the accumulations), two consumer warpgroups a
+//      block, P and dS handed from the accumulators to the next product
+//      as its register A operand (flash-attention-3's layout).
+//   Tiles by the register budget (255 a thread, 64K an SM): a block owns
+//   128 rows (64 a warpgroup: 128 accumulator floats a thread for dK and
+//   dV at D = 128) and streams 64 a step (64 score floats a thread).
+//   Shared memory 133,120 bytes at D = 128 (of 227 KB), one block an SM.
 // - everything else, float32 included (its parity checks must not see bf16
 //   or TF32 rounding): scalar float FMAs on the CUDA cores with float tiles
 //   [R][Dmax+1] in shared memory, R = 64 rows up to Dmax = 128 and 32 at
@@ -57,13 +75,11 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using rtt::from_float;
-using rtt::kPad;
-using rtt::ld32;
-using rtt::ld_col_pair;
 using rtt::to_float;
 
 constexpr int kThreads = 128;  // 16 row groups x 8 column lanes; 4 warps
@@ -90,10 +106,10 @@ struct BwdArgs {
   int causal, q_offset, kv_offset, per_head;
 };
 
-// Tile rows of the scalar kernels (the tensor-core kernels always use 64).
-// The wrapper's grid switch keeps a copy of this rule
-// (flash_attention.py: bwd_tile_rows); a card test holds the two together
-// through rtt_flash_bwd_tile_rows.
+// Tile rows of the scalar kernels (the wgmma kernels': kBlockRows,
+// kStepRows). The wrapper's grid rule keeps a copy (flash_attention.py:
+// bwd_tiles); a card test holds the two together through
+// rtt_flash_bwd_tile_rows.
 __host__ __device__ constexpr int tile_rows(int dmax) {
   return dmax <= 128 ? 64 : 32;
 }
@@ -129,11 +145,13 @@ __device__ __forceinline__ bool visible(const BwdArgs& a, int row, int col) {
 struct HeadRange {
   int b, hk, h0, n;
 };
-__device__ __forceinline__ HeadRange dkv_heads(const BwdArgs& a) {
+__device__ __forceinline__ HeadRange heads_of(const BwdArgs& a, int y) {
   const int rep = a.H / a.Hkv;
-  const int y = blockIdx.y;
   if (a.per_head) return {y / a.H, (y % a.H) / rep, y % a.H, 1};
   return {y / a.Hkv, y % a.Hkv, (y % a.Hkv) * rep, rep};
+}
+__device__ __forceinline__ HeadRange dkv_heads(const BwdArgs& a) {
+  return heads_of(a, blockIdx.y);
 }
 
 // Writes one dK or dV value: float32 at query head h in the per-head mode,
@@ -430,282 +448,437 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   }
 }
 
-// ---- bf16 on the tensor cores -------------------------------------------
+// ---- bf16 on Hopper's tensor cores: wgmma ------------------------------
 //
-// Each of the 4 warps owns 16 rows of the block's 64-row tile (queries in
-// dQ, keys in dK/dV). A warp's 16 x 64 score tile stays in the mma
-// accumulators: s[n][2*hh + e] is row r0 + 8*hh, column 8n + 2t + e of the
-// tile, with g = lane / 4, t = lane % 4 and r0 = 16 * warp + g. The
-// accumulators of column n-tiles 2kk and 2kk+1 are, repacked as bf16, the A
-// fragment of columns 16kk .. 16kk+15, so P and dS feed the next product
-// without a trip through shared memory (as the forward's P feeds PV).
+// Both kernels run two consumer warpgroups (256 threads) on one block and
+// copy their streamed tiles themselves (no producer warp): each warpgroup
+// owns 64 of the block's 128 rows, and all 256 threads start the
+// asynchronous copies of a ring of kStages stages. Step i of a block:
+//   wait for step i's copies (cp.async.wait_group), fence them to the async
+//   proxy, __syncthreads (step i's tiles are in; every thread is done with
+//   step i - 1's stage), start the copies of step i + kStages - 1 into the
+//   stage step i - 1 used, then compute step i.
+// So the copies of the next kStages - 1 tiles run while the products of
+// this one do, with one barrier a step. Tiles are laid out for wgmma
+// (wgmma.cuh: 128-byte swizzle, 1,024-byte aligned); rows past the tensor
+// and columns past D are zero-filled by the copies.
 
-constexpr int kTile = 64;
-constexpr int NT = kTile / 8;  // column n-tiles of a score tile
-// Both versions tile by the same rows at the D they share, so one rule
-// (tile_rows, exported as rtt_flash_bwd_tile_rows) gives the grid.
-static_assert(kTile == tile_rows(64) && kTile == tile_rows(128),
-              "the tensor-core and scalar kernels share their tile rows");
+namespace sm90 = rtt::sm90;
 
+constexpr int kWarpgroups = 2;
+constexpr int kWgThreads = 128 * kWarpgroups;
+constexpr int kBlockRows = 64 * kWarpgroups;  // keys (dK/dV), queries (dQ)
+constexpr int kStepRows = 64;                 // queries (dK/dV), keys (dQ)
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory: 1,024 bytes of alignment slack, the block's two resident
+// tiles (K and V, or Q and dO), and per stage the two streamed tiles plus
+// 64 lse and 64 delta values (used by dK/dV). 133,120 bytes at D = 128.
 template <int DMAX>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 4 * size_t(kTile) * (DMAX + kPad) +
-         sizeof(float) * 2 * kTile;
+constexpr size_t wgmma_smem_bytes() {
+  return 1024 + 2 * size_t(sm90::SwTile<kBlockRows, DMAX>::kBytes) +
+         kStages * (2 * size_t(sm90::SwTile<kStepRows, DMAX>::kBytes) +
+                    2 * kStepRows * sizeof(float));
 }
 
-// acc = A B^T over d for a warp's 16 x 64 tile: rows r0 and r0 + 8 of the
-// bf16 tile `a_s` against the 64 rows of `b_s`, both of pitch DMAX + kPad;
-// D a multiple of 16.
-template <int DMAX>
-__device__ __forceinline__ void tile_product_nt(const __nv_bfloat16* a_s,
-                                                const __nv_bfloat16* b_s,
-                                                int r0, int g, int t, int D,
-                                                float (&acc)[NT][4]) {
-  constexpr int PITCH = DMAX + kPad;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += 16) {
-    const unsigned fa[4] = {ld32(a_s + r0 * PITCH + d0 + 2 * t),
-                            ld32(a_s + (r0 + 8) * PITCH + d0 + 2 * t),
-                            ld32(a_s + r0 * PITCH + d0 + 8 + 2 * t),
-                            ld32(a_s + (r0 + 8) * PITCH + d0 + 8 + 2 * t)};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const __nv_bfloat16* br = b_s + (n * 8 + g) * PITCH + d0 + 2 * t;
-      const unsigned fb[2] = {ld32(br), ld32(br + 8)};
-      rtt::mma_16816_bf16(acc[n], fa, fb);
-    }
-  }
+// Key tiles of `tile` rows [0, n) that the query rows before `q_end` see.
+__device__ __forceinline__ int key_tiles_before(const BwdArgs& a, int q_end,
+                                                int tile) {
+  const int nk = (a.Skv + tile - 1) / tile;
+  if (!a.causal) return nk;
+  const int reach = a.q_offset + q_end - 1 - a.kv_offset;
+  return reach < 0 ? 0 : min(nk, reach / tile + 1);
 }
 
-// out[n] += X M, X the warp's 16 x 64 tile held as accumulators `x` (see
-// above), M the 64 x DMAX bf16 tile `m_s` (rows = the tile's columns).
+// dK/dV. A block owns 128 keys of one (batch, KV head), or of one (batch,
+// query head) in the per-head mode: blockIdx.x is the head, blockIdx.y the
+// key tile, so blocks are dispatched key tile 0 first, the longest chains
+// under causal masking (the wrapper's grid rule bounds that chain). The
+// block streams the 64-row Q and dO tiles of every query head it covers
+// from the causal lower bound on, as one chain of steps across heads; each
+// warpgroup keeps its 64 keys' dK and dV in float registers to the end.
+// A step, per warpgroup (64 keys x 64 queries):
+//   S^T = K Q^T, dP^T = V dO^T   (wgmma SS, K-major, D/16 k-steps each)
+//   P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta), 0 where masked
+//   dV += P^T dO, dK += dS^T Q   (wgmma RS: P^T, dS^T from the
+//                                 accumulators as bf16; dO, Q MN-major)
+// Registers at D = 128: dK and dV 64 floats each a thread, S^T and dP^T 32
+// each, P^T and dS^T as 16 bf16 pairs each, ~230 live at the peak: ptxas
+// takes all 255 a thread may have (256 threads x 255 fit the SM's 64K
+// once: one block an SM). Check -Xptxas -v for spills after an edit.
 template <int DMAX>
-__device__ __forceinline__ void accumulate_tn(const float (&x)[NT][4],
-                                              const __nv_bfloat16* m_s,
-                                              int g, int t,
-                                              float (&out)[DMAX / 8][4]) {
-  constexpr int PITCH = DMAX + kPad;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const unsigned fa[4] = {rtt::pack_bf16x2(x[2 * kk][0], x[2 * kk][1]),
-                            rtt::pack_bf16x2(x[2 * kk][2], x[2 * kk][3]),
-                            rtt::pack_bf16x2(x[2 * kk + 1][0],
-                                             x[2 * kk + 1][1]),
-                            rtt::pack_bf16x2(x[2 * kk + 1][2],
-                                             x[2 * kk + 1][3])};
-    const int row = kk * 16 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DMAX / 8; ++n) {
-      const int col = n * 8 + g;
-      const unsigned fb[2] = {ld_col_pair(m_s, row, col, PITCH),
-                              ld_col_pair(m_s, row + 8, col, PITCH)};
-      rtt::mma_16816_bf16(out[n], fa, fb);
-    }
-  }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_mma_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(BwdArgs a) {
   using bf16 = __nv_bfloat16;
-  constexpr int PITCH = DMAX + kPad;
-  constexpr int ND = DMAX / 8;
+  constexpr int KT = sm90::SwTile<kBlockRows, DMAX>::kBytes;
+  constexpr int QT = sm90::SwTile<kStepRows, DMAX>::kBytes;
+  constexpr int NK = DMAX / 16;       // k-steps over d
+  constexpr int NS = kStepRows / 16;  // k-steps over a step's queries
 
   extern __shared__ float4 rtt_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(rtt_smem);
-  bf16* do_s = q_s + kTile * PITCH;
-  bf16* k_s = do_s + kTile * PITCH;
-  bf16* v_s = k_s + kTile * PITCH;
+  const uint32_t raw = sm90::smem_addr(rtt_smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + KT;
+  const uint32_t ring = v_s + KT;  // stage s: Q at ring + 2 QT s, dO next
+  float* lse_s = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(rtt_smem) + (ring + kStages * 2 * QT - raw));
+  float* dl_s = lse_s + kStages * kStepRows;  // both [kStages][kStepRows]
 
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16 + g;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh % a.H;
-  const int hk = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.x * kTile;
-  const int D = a.D;
-
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h;
-  const int rows_q = min(kTile, a.Sq - q0);
-  rtt::copy_tile_bf16<kTile, DMAX, kThreads>(qb + q0 * a.sq.s, a.sq.s, rows_q,
-                                             D, q_s);
-  rtt::copy_tile_bf16<kTile, DMAX, kThreads>(dob + q0 * a.sdo.s, a.sdo.s,
-                                             rows_q, D, do_s);
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + r0 + 8 * hh;
-    const bool in = row < a.Sq;
-    lse_r[hh] = in ? a.lse[int64_t(bh) * a.Sq + row] : 0.f;
-    dl_r[hh] = in ? a.delta[int64_t(bh) * a.Sq + row] : 0.f;
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int hi = key_tiles_seen(a, q0, kTile);
-  for (int j = 0; j < hi; ++j) {
-    const int k0 = j * kTile;
-    const int rows_k = min(kTile, a.Skv - k0);
-    __syncthreads();  // the previous tile's readers are done
-    rtt::copy_tile_bf16<kTile, DMAX, kThreads>(kb + k0 * a.sk.s, a.sk.s,
-                                               rows_k, D, k_s);
-    rtt::copy_tile_bf16<kTile, DMAX, kThreads>(vb + k0 * a.sv.s, a.sv.s,
-                                               rows_k, D, v_s);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-    tile_product_nt<DMAX>(q_s, k_s, r0, g, t, D, s);    // S = Q K^T
-    tile_product_nt<DMAX>(do_s, v_s, r0, g, t, D, dp);  // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 2 * hh + e;
-          const bool ok =
-              visible(a, q0 + r0 + 8 * hh, k0 + n * 8 + 2 * t + e);
-          const float p = ok ? expf(s[n][i] * a.scale - lse_r[hh]) : 0.f;
-          s[n][i] = p * (dp[n][i] - dl_r[hh]);  // dS
-        }
-    accumulate_tn<DMAX>(s, k_s, g, t, acc);  // dQ += dS K
-  }
-
-  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + r0 + 8 * hh;
-    if (row >= a.Sq) continue;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < D)
-        *reinterpret_cast<unsigned*>(dqb + row * a.sdq.s + col) =
-            rtt::pack_bf16x2(acc[n][2 * hh] * a.scale,
-                             acc[n][2 * hh + 1] * a.scale);
-    }
-  }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_mma_kernel(BwdArgs a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int PITCH = DMAX + kPad;
-  constexpr int ND = DMAX / 8;
-
-  extern __shared__ float4 rtt_smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(rtt_smem);
-  bf16* v_s = k_s + kTile * PITCH;
-  bf16* q_s = v_s + kTile * PITCH;
-  bf16* do_s = q_s + kTile * PITCH;
-  float* lse_s = reinterpret_cast<float*>(do_s + kTile * PITCH);
-  float* dl_s = lse_s + kTile;
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16 + g;  // key rows r0, r0 + 8
-  const HeadRange hr = dkv_heads(a);
-  const int k0 = blockIdx.x * kTile;
-  const int rows_k = min(kTile, a.Skv - k0);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const HeadRange hr = heads_of(a, blockIdx.x);
+  const int k0 = blockIdx.y * kBlockRows;
+  const int kw = k0 + 64 * wg;         // this warpgroup's first key
+  const int key = kw + 16 * warp + g;  // this thread's keys: key, key + 8
   const int D = a.D;
 
   const bf16* kb =
       static_cast<const bf16*>(a.k) + hr.b * a.sk.b + hr.hk * a.sk.h;
   const bf16* vb =
       static_cast<const bf16*>(a.v) + hr.b * a.sv.b + hr.hk * a.sv.h;
-  rtt::copy_tile_bf16<kTile, DMAX, kThreads>(kb + k0 * a.sk.s, a.sk.s, rows_k,
-                                             D, k_s);
-  rtt::copy_tile_bf16<kTile, DMAX, kThreads>(vb + k0 * a.sv.s, a.sv.s, rows_k,
-                                             D, v_s);
+  const int lo = first_query_tile(a, k0, kStepRows);
+  const int per = (a.Sq + kStepRows - 1) / kStepRows - lo;  // steps a head
+  const int steps = hr.n * per;
 
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const int lo = first_query_tile(a, k0, kTile);
-  const int nq = (a.Sq + kTile - 1) / kTile;
-  for (int hh = 0; hh < hr.n; ++hh) {
-    const int h = hr.h0 + hh;
-    const int64_t bh = int64_t(hr.b) * a.H + h;
-    const bf16* qb =
-        static_cast<const bf16*>(a.q) + hr.b * a.sq.b + h * a.sq.h;
-    const bf16* dob =
-        static_cast<const bf16*>(a.dout) + hr.b * a.sdo.b + h * a.sdo.h;
-    for (int j = lo; j < nq; ++j) {
-      const int q0 = j * kTile;
-      const int rows_q = min(kTile, a.Sq - q0);
-      __syncthreads();  // the previous tile's readers are done
-      rtt::copy_tile_bf16<kTile, DMAX, kThreads>(qb + q0 * a.sq.s, a.sq.s,
-                                                 rows_q, D, q_s);
-      rtt::copy_tile_bf16<kTile, DMAX, kThreads>(dob + q0 * a.sdo.s,
-                                                 a.sdo.s, rows_q, D, do_s);
-      if (threadIdx.x < kTile) {
-        const bool in = int(threadIdx.x) < rows_q;
-        lse_s[threadIdx.x] = in ? a.lse[bh * a.Sq + q0 + threadIdx.x] : 0.f;
-        dl_s[threadIdx.x] = in ? a.delta[bh * a.Sq + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-
-      // P^T = exp(K Q^T scale - lse), then dV += P^T dO.
-      float p[NT][4], ds[NT][4];
-      tile_product_nt<DMAX>(k_s, q_s, r0, g, t, D, p);
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int hh2 = 0; hh2 < 2; ++hh2)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qc = n * 8 + 2 * t + e;
-            const int i = 2 * hh2 + e;
-            const bool ok = visible(a, q0 + qc, k0 + r0 + 8 * hh2);
-            p[n][i] = ok ? expf(p[n][i] * a.scale - lse_s[qc]) : 0.f;
-          }
-      accumulate_tn<DMAX>(p, do_s, g, t, dv);
-
-      // dS^T = P^T (V dO^T - delta), then dK += dS^T Q.
-      tile_product_nt<DMAX>(v_s, do_s, r0, g, t, D, ds);
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          ds[n][i] = p[n][i] * (ds[n][i] - dl_s[n * 8 + 2 * t + (i & 1)]);
-      accumulate_tn<DMAX>(ds, q_s, g, t, dk);
+  // Step i streams query tile lo + i % per of head h0 + i / per into stage
+  // i % kStages: Q, dO, and the tile's lse and delta.
+  auto fetch = [&](int i) {
+    const int s = i % kStages;
+    const int h = hr.h0 + i / per;
+    const int q0 = (lo + i % per) * kStepRows;
+    const int rows = min(kStepRows, a.Sq - q0);
+    const uint32_t q_st = ring + s * 2 * QT;
+    sm90::cp_async_tile<kStepRows, DMAX, kWgThreads>(
+        static_cast<const bf16*>(a.q) + hr.b * a.sq.b + h * a.sq.h +
+            q0 * a.sq.s,
+        a.sq.s, rows, D, q_st, tid);
+    sm90::cp_async_tile<kStepRows, DMAX, kWgThreads>(
+        static_cast<const bf16*>(a.dout) + hr.b * a.sdo.b + h * a.sdo.h +
+            q0 * a.sdo.s,
+        a.sdo.s, rows, D, q_st + QT, tid);
+    if (tid < 2 * kStepRows) {
+      const int r = tid % kStepRows;
+      const bool lse = tid < kStepRows;
+      const float* src = (lse ? a.lse : a.delta) +
+                         (int64_t(hr.b) * a.H + h) * a.Sq + q0 + r;
+      float* dst = (lse ? lse_s : dl_s) + s * kStepRows + r;
+      sm90::cp_async4(sm90::smem_addr(dst), r < rows ? src : a.lse,
+                      r < rows ? 4 : 0);
     }
+  };
+
+  const int rows_k = min(kBlockRows, a.Skv - k0);
+  sm90::cp_async_tile<kBlockRows, DMAX, kWgThreads>(
+      kb + k0 * a.sk.s, a.sk.s, rows_k, D, k_s, tid);
+  sm90::cp_async_tile<kBlockRows, DMAX, kWgThreads>(
+      vb + k0 * a.sv.s, a.sv.s, rows_k, D, v_s, tid);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < steps) fetch(i);
+    sm90::cp_async_commit();
   }
 
+  float dk[DMAX / 2], dv[DMAX / 2];
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) dk[i] = dv[i] = 0.f;
+  const float scale_log2 = a.scale * kLog2e;
+
+  for (int i = 0; i < steps; ++i) {
+    sm90::cp_async_wait<kStages - 2>();
+    sm90::fence_async_smem();
+    __syncthreads();
+    if (i + kStages - 1 < steps) fetch(i + kStages - 1);
+    sm90::cp_async_commit();
+
+    const int q0 = (lo + i % per) * kStepRows;
+    const int q_last = min(q0 + kStepRows, a.Sq) - 1;
+    // Nothing to add when this warpgroup's keys are past the tensor or all
+    // after the tile's last query (a warpgroup-uniform branch).
+    if (kw >= a.Skv || (a.causal && a.kv_offset + kw > a.q_offset + q_last))
+      continue;
+    const int s = i % kStages;
+    const uint32_t q_st = ring + s * 2 * QT;
+    const uint32_t do_st = q_st + QT;
+    const float* lse_t = lse_s + s * kStepRows;
+    const float* dl_t = dl_s + s * kStepRows;
+
+    // S^T and dP^T in two commit groups, so the exponentials of S^T run
+    // while the tensor cores compute dP^T, and dS^T while they add P^T dO.
+    float st[32], dpt[32];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      sm90::wgmma_ss_m64n64k16(
+          st, sm90::desc_kmajor<kBlockRows>(k_s, 64 * wg, kk),
+          sm90::desc_kmajor<kStepRows>(q_st, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      sm90::wgmma_ss_m64n64k16(
+          dpt, sm90::desc_kmajor<kBlockRows>(v_s, 64 * wg, kk),
+          sm90::desc_kmajor<kStepRows>(do_st, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::fence_operand(st);
+
+    // P^T = exp(S^T scale - lse), 0 where masked. Entry 4j + x: key
+    // `key + 8 (x / 2)`, query q0 + 8j + 2t + x % 2. The mask is applied to
+    // the exponent (-inf), in a separate loop that only tiles on a ragged
+    // edge or the causal diagonal run: no branch per entry, so the SFU's
+    // exponentials run back to back.
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+      st[n] = st[n] * scale_log2 - lse_t[8 * (n >> 2) + 2 * t + (n & 1)] *
+                                       kLog2e;
+    if (!(q0 + kStepRows <= a.Sq && kw + 64 <= a.Skv &&
+          (!a.causal || a.kv_offset + kw + 63 <= a.q_offset + q0))) {
+#pragma unroll
+      for (int n = 0; n < 32; ++n)
+        if (!visible(a, q0 + 8 * (n >> 2) + 2 * t + (n & 1),
+                     key + 8 * ((n >> 1) & 1)))
+          st[n] = __int_as_float(0xff800000);  // -inf
+    }
+#pragma unroll
+    for (int n = 0; n < 32; ++n) st[n] = sm90::exp2_approx(st[n]);
+    uint32_t pa[NS][4];
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) sm90::a_fragment(st, kk, pa[kk]);
+    sm90::fence_operand(dv);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)  // dV += P^T dO
+      sm90::wgmma_rs<DMAX>(dv, pa[kk],
+                           sm90::desc_mnmajor<kStepRows>(do_st, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // dP^T is in; dV may still run
+    sm90::fence_operand(dpt);
+
+    // dS^T = P^T (dP^T - delta).
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int n = 4 * j + x;
+        dpt[n] = st[n] * (dpt[n] - dl_t[8 * j + 2 * t + (x & 1)]);
+      }
+    uint32_t da[NS][4];
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) sm90::a_fragment(dpt, kk, da[kk]);
+    sm90::fence_operand(dk);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)  // dK += dS^T Q
+      sm90::wgmma_rs<DMAX>(dk, da[kk],
+                           sm90::desc_mnmajor<kStepRows>(q_st, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(dv);
+    sm90::fence_operand(dk);
+  }
+  sm90::cp_async_wait<0>();  // a block with no steps still has K and V
+
+  // Entry 4j + 2hh + e: key `key + 8hh`, column 8j + 2t + e; stored two
+  // columns at a time (float2 per head, else a bf16 pair).
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = k0 + r0 + 8 * hh;
+    const int row = key + 8 * hh;
     if (row >= a.Skv) continue;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * t + e;
-        if (d >= D) continue;
-        store_dkv<bf16>(a, a.dk, a.sdk, hr.b, hr.hk, hr.h0, row, d,
-                        dk[n][2 * hh + e] * a.scale);
-        store_dkv<bf16>(a, a.dv, a.sdv, hr.b, hr.hk, hr.h0, row, d,
-                        dv[n][2 * hh + e]);
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int d = 8 * j + 2 * t;
+      if (d >= D) continue;
+      const int n = 4 * j + 2 * hh;
+      const float k_lo = dk[n] * a.scale, k_hi = dk[n + 1] * a.scale;
+      if (a.per_head) {
+        const int64_t off = hr.b * a.sdk.b + row * a.sdk.s + hr.h0 * a.sdk.h;
+        const int64_t offv = hr.b * a.sdv.b + row * a.sdv.s + hr.h0 * a.sdv.h;
+        *reinterpret_cast<float2*>(static_cast<float*>(a.dk) + off + d) =
+            make_float2(k_lo, k_hi);
+        *reinterpret_cast<float2*>(static_cast<float*>(a.dv) + offv + d) =
+            make_float2(dv[n], dv[n + 1]);
+      } else {
+        const int64_t off = hr.b * a.sdk.b + row * a.sdk.s + hr.hk * a.sdk.h;
+        const int64_t offv = hr.b * a.sdv.b + row * a.sdv.s + hr.hk * a.sdv.h;
+        *reinterpret_cast<unsigned*>(static_cast<bf16*>(a.dk) + off + d) =
+            rtt::pack_bf16x2(k_lo, k_hi);
+        *reinterpret_cast<unsigned*>(static_cast<bf16*>(a.dv) + offv + d) =
+            rtt::pack_bf16x2(dv[n], dv[n + 1]);
       }
+    }
+  }
+}
+
+// dQ. A block owns 128 query rows of one (batch, head): blockIdx.x is the
+// head, blockIdx.y counts query tiles from the last, so the longest causal
+// chains are dispatched first. It streams the 64-row K and V tiles up to
+// the causal bound; each warpgroup keeps its 64 rows' dQ in float
+// registers. A step, per warpgroup (64 queries x 64 keys):
+//   S = Q K^T, dP = dO V^T       (wgmma SS, K-major)
+//   dS = P (dP - delta), P = exp(S scale - lse), 0 where masked
+//   dQ += dS K                   (wgmma RS: dS from the accumulators as
+//                                 bf16; K MN-major)
+// The first warpgroup's rows see one key tile fewer on the diagonal and
+// skip it. Registers at D = 128: dQ 64 floats, S and dP 32 each, dS 16
+// pairs. The grid's chains differ by at most ceil(Sq / 64) steps and
+// B*H*ceil(Sq/128) blocks fill the SMs at the training shapes, so dQ needs
+// no grid switch; the longest-first order trims its tail.
+template <int DMAX>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int QT = sm90::SwTile<kBlockRows, DMAX>::kBytes;
+  constexpr int KT = sm90::SwTile<kStepRows, DMAX>::kBytes;
+  constexpr int NK = DMAX / 16;
+  constexpr int NS = kStepRows / 16;
+
+  extern __shared__ float4 rtt_smem[];
+  const uint32_t q_s = (sm90::smem_addr(rtt_smem) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + QT;
+  const uint32_t ring = do_s + QT;  // stage s: K at ring + 2 KT s, V next
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int hk = h / (a.H / a.Hkv);
+  const int q0 =
+      ((a.Sq + kBlockRows - 1) / kBlockRows - 1 - int(blockIdx.y)) *
+      kBlockRows;
+  const int qw = q0 + 64 * wg;         // this warpgroup's first row
+  const int row = qw + 16 * warp + g;  // this thread's rows: row, row + 8
+  const int D = a.D;
+
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h;
+  const int steps = key_tiles_before(a, min(q0 + kBlockRows, a.Sq), kStepRows);
+  const int wg_steps =
+      qw < a.Sq ? key_tiles_before(a, min(qw + 64, a.Sq), kStepRows) : 0;
+
+  auto fetch = [&](int i) {  // K and V tile i into stage i % kStages
+    const int s = i % kStages;
+    const int kt0 = i * kStepRows;
+    const int rows = min(kStepRows, a.Skv - kt0);
+    sm90::cp_async_tile<kStepRows, DMAX, kWgThreads>(
+        kb + kt0 * a.sk.s, a.sk.s, rows, D, ring + s * 2 * KT, tid);
+    sm90::cp_async_tile<kStepRows, DMAX, kWgThreads>(
+        vb + kt0 * a.sv.s, a.sv.s, rows, D, ring + s * 2 * KT + KT, tid);
+  };
+
+  const int rows_q = min(kBlockRows, a.Sq - q0);
+  sm90::cp_async_tile<kBlockRows, DMAX, kWgThreads>(
+      static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h + q0 * a.sq.s,
+      a.sq.s, rows_q, D, q_s, tid);
+  sm90::cp_async_tile<kBlockRows, DMAX, kWgThreads>(
+      static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h +
+          q0 * a.sdo.s,
+      a.sdo.s, rows_q, D, do_s, tid);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < steps) fetch(i);
+    sm90::cp_async_commit();
+  }
+
+  float lse_r[2], dl_r[2];  // lse in log2 units
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    const bool in = r < a.Sq;
+    lse_r[hh] = in ? a.lse[int64_t(bh) * a.Sq + r] * kLog2e : 0.f;
+    dl_r[hh] = in ? a.delta[int64_t(bh) * a.Sq + r] : 0.f;
+  }
+  float dq[DMAX / 2];
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) dq[i] = 0.f;
+  const float scale_log2 = a.scale * kLog2e;
+
+  for (int i = 0; i < steps; ++i) {
+    sm90::cp_async_wait<kStages - 2>();
+    sm90::fence_async_smem();
+    __syncthreads();
+    if (i + kStages - 1 < steps) fetch(i + kStages - 1);
+    sm90::cp_async_commit();
+    if (i >= wg_steps) continue;  // warpgroup-uniform
+
+    const int kt0 = i * kStepRows;
+    const uint32_t k_st = ring + (i % kStages) * 2 * KT;
+    const uint32_t v_st = k_st + KT;
+    // S and dP in two commit groups: the exponentials of S run while the
+    // tensor cores compute dP.
+    float sc[32], dp[32];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      sm90::wgmma_ss_m64n64k16(
+          sc, sm90::desc_kmajor<kBlockRows>(q_s, 64 * wg, kk),
+          sm90::desc_kmajor<kStepRows>(k_st, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      sm90::wgmma_ss_m64n64k16(
+          dp, sm90::desc_kmajor<kBlockRows>(do_s, 64 * wg, kk),
+          sm90::desc_kmajor<kStepRows>(v_st, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::fence_operand(sc);
+
+    // P = exp(S scale - lse), 0 where masked (as in dK/dV: the mask goes
+    // into the exponent, only on edge and diagonal tiles). Entry 4j + x:
+    // row `row + 8 (x / 2)`, key kt0 + 8j + 2t + x % 2.
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+      sc[n] = sc[n] * scale_log2 - lse_r[(n >> 1) & 1];
+    if (!(qw + 64 <= a.Sq && kt0 + kStepRows <= a.Skv &&
+          (!a.causal ||
+           a.kv_offset + kt0 + kStepRows - 1 <= a.q_offset + qw))) {
+#pragma unroll
+      for (int n = 0; n < 32; ++n)
+        if (!visible(a, row + 8 * ((n >> 1) & 1),
+                     kt0 + 8 * (n >> 2) + 2 * t + (n & 1)))
+          sc[n] = __int_as_float(0xff800000);  // -inf
+    }
+#pragma unroll
+    for (int n = 0; n < 32; ++n) sc[n] = sm90::exp2_approx(sc[n]);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(dp);
+    // dS = P (dP - delta), then dQ += dS K.
+#pragma unroll
+    for (int n = 0; n < 32; ++n) dp[n] = sc[n] * (dp[n] - dl_r[(n >> 1) & 1]);
+    uint32_t da[NS][4];
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) sm90::a_fragment(dp, kk, da[kk]);
+    sm90::fence_operand(dq);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)
+      sm90::wgmma_rs<DMAX>(dq, da[kk], sm90::desc_mnmajor<kStepRows>(k_st, kk),
+                           1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(dq);
+  }
+  sm90::cp_async_wait<0>();  // a block with no steps still has Q and dO
+
+  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r >= a.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int d = 8 * j + 2 * t;
+      if (d < D)
+        *reinterpret_cast<unsigned*>(dqb + r * a.sdq.s + d) =
+            rtt::pack_bf16x2(dq[4 * j + 2 * hh] * a.scale,
+                             dq[4 * j + 2 * hh + 1] * a.scale);
+    }
   }
 }
 
@@ -713,11 +886,12 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename Kernel>
 cudaError_t launch_kernel(Kernel kernel, size_t smem, dim3 grid,
-                          const BwdArgs& a, cudaStream_t stream) {
+                          const BwdArgs& a, cudaStream_t stream,
+                          int threads = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -745,14 +919,20 @@ cudaError_t launch_for_dim(const BwdArgs& a, bool dq, cudaStream_t stream) {
   return launch_scalar<T, 256, VEC>(a, dq, stream);
 }
 
+// The wgmma kernels' grids put the head on x and the tile on y, so blocks
+// are dispatched tile by tile, the longest chains first.
 template <int DMAX>
-cudaError_t launch_mma(const BwdArgs& a, bool dq, cudaStream_t stream) {
-  const dim3 grid = grid_for(a, dq, kTile);
+cudaError_t launch_wgmma(const BwdArgs& a, bool dq, cudaStream_t stream) {
+  const size_t smem = wgmma_smem_bytes<DMAX>();
   if (dq)
-    return launch_kernel(flash_bwd_dq_mma_kernel<DMAX>,
-                         mma_smem_bytes<DMAX>(), grid, a, stream);
-  return launch_kernel(flash_bwd_dkv_mma_kernel<DMAX>, mma_smem_bytes<DMAX>(),
-                       grid, a, stream);
+    return launch_kernel(
+        flash_bwd_dq_wgmma_kernel<DMAX>, smem,
+        dim3(a.B * a.H, (a.Sq + kBlockRows - 1) / kBlockRows), a, stream,
+        kWgThreads);
+  return launch_kernel(flash_bwd_dkv_wgmma_kernel<DMAX>, smem,
+                       dim3(a.B * (a.per_head ? a.H : a.Hkv),
+                            (a.Skv + kBlockRows - 1) / kBlockRows),
+                       a, stream, kWgThreads);
 }
 
 bool aligned16(const void* p) {
@@ -770,16 +950,29 @@ bool vector_rows(const BwdArgs& a) {
   return ok;
 }
 
+// Whether the wgmma kernels can store the outputs two columns at a time:
+// even strides and bases on 4 bytes (a bf16 pair) or 8 (a float2 per head).
+bool paired_outputs(const BwdArgs& a, bool dq) {
+  auto even = [](const Strides& s) {
+    return s.b % 2 == 0 && s.s % 2 == 0 && s.h % 2 == 0;
+  };
+  auto on = [](const void* p, int n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  if (dq) return even(a.sdq) && on(a.dq, 4);
+  const int n = a.per_head ? 8 : 4;
+  return even(a.sdk) && even(a.sdv) && on(a.dk, n) && on(a.dv, n);
+}
+
 template <typename T>
 cudaError_t launch_for_type(const BwdArgs& a, bool dq, cudaStream_t stream) {
   // bf16 with aligned rows and D a multiple of 16 up to 128 (the 8B model's
-  // shape) runs on the tensor cores; everything else on the CUDA cores.
-  // The tensor-core kernels store bf16 outputs two at a time.
+  // shape) runs on the tensor cores (wgmma); everything else on the CUDA
+  // cores.
   if (std::is_same<T, __nv_bfloat16>::value && a.D % 16 == 0 &&
-      a.D <= 128 && vector_rows<T>(a) && a.sdq.s % 2 == 0 &&
-      a.sdq.b % 2 == 0 && a.sdq.h % 2 == 0) {
-    if (a.D <= 64) return launch_mma<64>(a, dq, stream);
-    return launch_mma<128>(a, dq, stream);
+      a.D <= 128 && vector_rows<T>(a) && paired_outputs(a, dq)) {
+    if (a.D <= 64) return launch_wgmma<64>(a, dq, stream);
+    return launch_wgmma<128>(a, dq, stream);
   }
   if (vector_rows<T>(a)) return launch_for_dim<T, true>(a, dq, stream);
   return launch_for_dim<T, false>(a, dq, stream);
@@ -863,8 +1056,55 @@ extern "C" int rtt_flash_bwd_dkv(int dtype, const void* q, const void* k,
   return int(launch(dtype, a, false, stream));
 }
 
-// Rows of a tile of either backward kernel at head dim D (1..256): the
-// grid is (ceil(S / rows), heads).
-extern "C" int rtt_flash_bwd_tile_rows(int D) {
+// Whether a bf16 launch at head dim D runs the wgmma kernels (given
+// aligned rows and outputs, which the wrapper's contiguous tensors have).
+static bool wgmma_path(int dtype, int D) {
+  return dtype == rtt::kBFloat16 && D % 16 == 0 && D >= 16 && D <= 128;
+}
+
+// Rows of the backward kernels' tiles at dtype code `dtype` and head dim D
+// (1..256): the rows a block owns (queries in dQ, keys in dK/dV) when
+// `step` is 0, the rows each step streams (keys in dQ, queries in dK/dV)
+// when it is 1. The wrapper's grid rule keeps a copy (flash_attention.py:
+// bwd_tiles); a card test holds the two together.
+extern "C" int rtt_flash_bwd_tile_rows(int dtype, int D, int step) {
+  if (wgmma_path(dtype, D)) return step ? kStepRows : kBlockRows;
   return tile_rows(D <= 64 ? 64 : D <= 128 ? 128 : 256);
+}
+
+// Blocks of the dK/dV kernel resident on one SM of the current device, at
+// dtype code `dtype` and head dim D, into *out. Returns a cudaError_t.
+extern "C" int rtt_flash_bwd_dkv_blocks_per_sm(int dtype, int D, int* out) {
+  auto query = [&](auto kernel, size_t smem, int threads) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                             threads, smem));
+  };
+  if (wgmma_path(dtype, D)) {
+    if (D <= 64)
+      return query(flash_bwd_dkv_wgmma_kernel<64>, wgmma_smem_bytes<64>(),
+                   kWgThreads);
+    return query(flash_bwd_dkv_wgmma_kernel<128>, wgmma_smem_bytes<128>(),
+                 kWgThreads);
+  }
+  if (dtype == rtt::kFloat32) {
+    if (D <= 64)
+      return query(flash_bwd_dkv_kernel<float, 64, true>,
+                   dkv_smem_bytes<64>(), kThreads);
+    if (D <= 128)
+      return query(flash_bwd_dkv_kernel<float, 128, true>,
+                   dkv_smem_bytes<128>(), kThreads);
+    return query(flash_bwd_dkv_kernel<float, 256, true>,
+                 dkv_smem_bytes<256>(), kThreads);
+  }
+  if (D <= 64)
+    return query(flash_bwd_dkv_kernel<__nv_bfloat16, 64, true>,
+                 dkv_smem_bytes<64>(), kThreads);
+  if (D <= 128)
+    return query(flash_bwd_dkv_kernel<__nv_bfloat16, 128, true>,
+                 dkv_smem_bytes<128>(), kThreads);
+  return query(flash_bwd_dkv_kernel<__nv_bfloat16, 256, true>,
+               dkv_smem_bytes<256>(), kThreads);
 }

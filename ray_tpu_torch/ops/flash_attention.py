@@ -27,6 +27,7 @@ grid) and ``bwd_dkv_per_head_launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,10 +42,21 @@ bwd_dq_launches = 0
 bwd_dkv_launches = 0
 bwd_dkv_per_head_launches = 0
 
-# The dK/dV kernel takes the per-query-head grid (H/Hkv times more blocks,
-# group sum outside) when the KV-head grid would have fewer blocks than
-# the H100's 132 SMs. Tests monkeypatch it to force either grid.
-DKV_GROUPED_MIN_BLOCKS = 132
+# The dK/dV grid: None lets :func:`dkv_per_head`'s rule choose; "kv_head"
+# or "per_head" forces one (tests and chip_smoke.py set it to hold each
+# grid against the plain version and time both).
+DKV_GRID: Optional[str] = None
+
+# What the grid rule weighs (dkv_grid_estimates), on the H100 SXM: its SM
+# count, its device-memory rate, and the rate at which one SM runs the dK/dV
+# kernel's tile steps (flops of whole tiles per second), with tensor cores
+# (the wgmma kernel: 3.2e12, its KV-head grid at B=8, S=2048, H=32, Hkv=8,
+# D=128 in chip_smoke.py, PERF.md) or without (the scalar kernel, a rough
+# 0.25e12). The rule compares two grids of one kernel, so the rate only
+# weighs the per-head grid's float32 round trip against tile steps.
+H100_SMS = 132
+HBM_BYTES_PER_S = 3.35e12
+DKV_SM_FLOPS_PER_S = {True: 3.2e12, False: 0.25e12}
 
 
 def masked_attention_f32(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -219,19 +231,85 @@ def flash_attention_bwd_reference(
             group_sum(dv).to(v.dtype))
 
 
-def bwd_tile_rows(D: int) -> int:
-    """Rows of the backward kernels' tiles: a copy of ``tile_rows`` in
-    ``csrc/flash_bwd.cu`` (the switch needs it on the CPU too, where no
-    library is built). ``test_bwd_tile_rows_match_the_kernels`` holds it
-    against the library's ``rtt_flash_bwd_tile_rows`` on the card."""
-    return 64 if D <= 128 else 32
+def bwd_tensor_cores(dtype: torch.dtype, D: int) -> bool:
+    """Whether the backward runs its wgmma kernels for contiguous inputs
+    of ``dtype`` and head dim D (else the scalar kernels)."""
+    return dtype == torch.bfloat16 and D % 16 == 0 and 16 <= D <= 128
 
 
-def dkv_per_head(B: int, H: int, Hkv: int, Skv: int, D: int) -> bool:
-    """Whether dK/dV takes the per-query-head grid (see
-    ``DKV_GROUPED_MIN_BLOCKS``)."""
-    tiles = -(-Skv // bwd_tile_rows(D))
-    return H > Hkv and B * Hkv * tiles < DKV_GROUPED_MIN_BLOCKS
+def bwd_tiles(dtype: torch.dtype, D: int) -> Tuple[int, int]:
+    """(rows a block owns, rows a step streams) of the backward kernels:
+    keys and queries in dK/dV, queries and keys in dQ. A copy of
+    ``csrc/flash_bwd.cu``'s rule (the grid rule needs it on the CPU too,
+    where no library is built); ``test_bwd_tile_rows_match_the_kernels`` holds
+    it against ``rtt_flash_bwd_tile_rows`` on the card."""
+    if bwd_tensor_cores(dtype, D):
+        return 128, 64
+    rows = 64 if D <= 128 else 32
+    return rows, rows
+
+
+def dkv_blocks_per_sm(dtype: torch.dtype, D: int) -> int:
+    """dK/dV blocks resident on one SM (registers and shared memory): a
+    copy of what ``rtt_flash_bwd_dkv_blocks_per_sm`` reads from the card,
+    held to it by the same card test."""
+    if bwd_tensor_cores(dtype, D):
+        return 1
+    return 2 if D <= 64 else 1
+
+
+def _first_query_tile(k0: int, Sq: int, rows_q: int, causal: bool,
+                      q_offset: int, kv_offset: int) -> int:
+    nq = -(-Sq // rows_q)
+    d = kv_offset + k0 - q_offset
+    return 0 if not causal or d <= 0 else min(nq, d // rows_q)
+
+
+def dkv_grid_estimates(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int,
+                       *, dtype: torch.dtype = torch.bfloat16,
+                       causal: bool = True, q_offset: int = 0,
+                       kv_offset: int = 0, sms: int = H100_SMS,
+                       ) -> Tuple[float, float]:
+    """Estimated seconds of the dK/dV kernel on (the KV-head grid, the
+    per-query-head grid). Each grid takes at least its longest block chain
+    (tile steps of one block: ``rep`` heads of query tiles for a KV-head
+    block, one head's for a per-head block; key tile 0 walks the most under
+    causal masking) and at least all steps spread over the resident blocks
+    (blocks an SM x ``sms``); both grids do the same steps. The per-head
+    grid also writes its float32 [B, Skv, H, D] dK and dV and the wrapper
+    reads them back to sum each group."""
+    rows_k, rows_q = bwd_tiles(dtype, D)
+    nq = -(-Sq // rows_q)
+    chains = [nq - _first_query_tile(i * rows_k, Sq, rows_q, causal,
+                                     q_offset, kv_offset)
+              for i in range(-(-Skv // rows_k))]
+    total = B * H * sum(chains)
+    slots = dkv_blocks_per_sm(dtype, D) * sms
+    spread = -(-total // slots)
+    step_s = 8.0 * rows_k * rows_q * D / DKV_SM_FLOPS_PER_S[
+        bwd_tensor_cores(dtype, D)]
+    rep = H // Hkv
+    kv_head = max(rep * max(chains), spread) * step_s
+    per_head = (max(max(chains), spread) * step_s
+                + 2 * 2 * B * Skv * H * D * 4 / HBM_BYTES_PER_S)
+    return kv_head, per_head
+
+
+def dkv_per_head(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int,
+                 **kw) -> bool:
+    """Whether dK/dV takes the per-query-head grid: ``DKV_GRID`` if set,
+    else the grid of the smaller :func:`dkv_grid_estimates` (keyword
+    arguments go there). MHA (H == Hkv) always takes the KV-head grid,
+    which is then the same grid without the float32 round trip."""
+    if H == Hkv:
+        return False
+    if DKV_GRID is not None:
+        if DKV_GRID not in ("kv_head", "per_head"):
+            raise ValueError(f"DKV_GRID must be None, 'kv_head' or "
+                             f"'per_head', not {DKV_GRID!r}")
+        return DKV_GRID == "per_head"
+    kv_head, per_head = dkv_grid_estimates(B, H, Hkv, Sq, Skv, D, **kw)
+    return per_head < kv_head
 
 
 def _bwd_args(q, k, causal, scale, q_offset, kv_offset):
@@ -287,11 +365,17 @@ def launch_bwd(lib, q, k, v, do, lse, delta, *, per_head, **kw):
     dk, dv = launch_bwd_dkv(lib, q, k, v, do, lse, delta, per_head=per_head,
                             **kw)
     if per_head:
-        B, Skv, Hkv, D = k.shape
-        rep = q.shape[2] // Hkv
-        dk = dk.view(B, Skv, Hkv, rep, D).sum(3).to(k.dtype)
-        dv = dv.view(B, Skv, Hkv, rep, D).sum(3).to(v.dtype)
+        dk, dv = group_sum_dkv(dk, dv, k)
     return dq, dk, dv
+
+
+def group_sum_dkv(dk: torch.Tensor, dv: torch.Tensor, k: torch.Tensor):
+    """The per-head grid's float32 [B, Skv, H, D] dK and dV summed over each
+    GQA group, in k's shape and dtype."""
+    B, Skv, Hkv, D = k.shape
+    rep = dk.shape[2] // Hkv
+    return (dk.view(B, Skv, Hkv, rep, D).sum(3).to(k.dtype),
+            dv.view(B, Skv, Hkv, rep, D).sum(3).to(k.dtype))
 
 
 def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -300,6 +384,11 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     B, Sq, H, _ = o.shape
     delta = (do.float() * o.float()).sum(-1)
     return delta.transpose(1, 2).reshape(B * H, Sq).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_attention_bwd(
@@ -344,7 +433,9 @@ def flash_attention_bwd(
     if not all(t.is_contiguous() for t in (q, k, v, lse)):
         raise ValueError("flash_attention_bwd needs contiguous q, k, v, lse")
     do = do.contiguous()
-    per_head = dkv_per_head(B, H, k.shape[2], k.shape[1], D)
+    per_head = dkv_per_head(
+        B, H, k.shape[2], Sq, k.shape[1], D, dtype=q.dtype, causal=causal,
+        q_offset=q_offset, kv_offset=kv_offset, sms=_sm_count(q.device))
     lib = _build.library()
     with torch.cuda.device(q.device):
         out = launch_bwd(lib, q, k, v, do, lse, bwd_delta(o, do),

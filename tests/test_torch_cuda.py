@@ -48,7 +48,12 @@ def _randn(rng, shape, dtype, device, misalign=False):
     return buf[1:].view(shape)
 
 
-# (B, Sq, Skv, H, Hkv, D, causal, q_offset, kv_offset, misalign q)
+# (B, Sq, Skv, H, Hkv, D, causal, q_offset, kv_offset, misalign q). The
+# bf16 backward's wgmma kernels tile 128 rows a block and 64 a step through
+# a 3-stage ring: "ragged_rep4" and "offsets_rep4" end in ragged 128-key
+# and 64-query tiles, "offsets_rep4" has Sq != Skv, both offsets and fully
+# masked query rows, "noncausal_long" chains 20 steps a KV-head block
+# (more than the ring's stages), "masked_tile" masks whole tiles.
 FLASH = {
     "ragged_gqa": (1, 70, 70, 2, 1, 64, True, 0, 0, False),
     "q_offset": (1, 64, 130, 2, 2, 128, True, 66, 0, False),
@@ -57,6 +62,9 @@ FLASH = {
     "d256": (1, 40, 40, 2, 2, 256, True, 0, 0, False),
     "d48_offsets": (1, 33, 100, 2, 2, 48, False, 5, 3, False),
     "misaligned": (1, 65, 65, 2, 1, 64, True, 0, 0, True),
+    "ragged_rep4": (1, 300, 300, 8, 2, 128, True, 0, 0, False),
+    "offsets_rep4": (2, 200, 140, 8, 2, 64, True, 10, 70, False),
+    "noncausal_long": (1, 260, 260, 4, 1, 128, False, 0, 0, False),
 }
 
 
@@ -125,7 +133,7 @@ def test_paged_kernel_matches_plain_version(cuda, case, dtype):
 def test_flash_bwd_kernels_match_plain_version(cuda, monkeypatch, case,
                                                dtype, per_head):
     B, Sq, Skv, H, Hkv, D, causal, qo, ko, mis = FLASH[case]
-    monkeypatch.setattr(fa, "DKV_GROUPED_MIN_BLOCKS", 10 ** 9 * per_head)
+    monkeypatch.setattr(fa, "DKV_GRID", "per_head" if per_head else "kv_head")
     rng = np.random.RandomState(len(case))
     q = _randn(rng, (B, Sq, H, D), dtype, cuda, misalign=mis)
     k = _randn(rng, (B, Skv, Hkv, D), dtype, cuda)
@@ -151,13 +159,51 @@ def test_flash_bwd_kernels_match_plain_version(cuda, monkeypatch, case,
 
 
 def test_bwd_tile_rows_match_the_kernels(cuda):
-    """The grid switch's copy of the backward kernels' tile rows agrees
-    with the library's rule at every head dim it takes."""
+    """The grid rule's copies of the backward kernels' tiles (rows a block
+    owns, rows a step streams) and of the dK/dV blocks an SM agree with the
+    library at every head dim and dtype it takes."""
+    import ctypes
+
     from ray_tpu_torch.ops import _build
 
     lib = _build.library()
-    got = [lib.rtt_flash_bwd_tile_rows(d) for d in range(1, 257)]
-    assert got == [fa.bwd_tile_rows(d) for d in range(1, 257)]
+    for dtype, code in _build.DTYPE_CODES.items():
+        got = [(lib.rtt_flash_bwd_tile_rows(code, d, 0),
+                lib.rtt_flash_bwd_tile_rows(code, d, 1))
+               for d in range(1, 257)]
+        assert got == [fa.bwd_tiles(dtype, d) for d in range(1, 257)], dtype
+        for d in (16, 48, 64, 100, 128, 256):
+            n = ctypes.c_int(-1)
+            _build.check(lib, lib.rtt_flash_bwd_dkv_blocks_per_sm(
+                code, d, ctypes.byref(n)), "occupancy")
+            assert n.value == fa.dkv_blocks_per_sm(dtype, d), (dtype, d)
+
+
+@pytest.mark.parametrize("D", [48, 64, 128])
+def test_wgmma_operand_forms_match_matmul(cuda, D):
+    """The wgmma building blocks in every form the backward kernels use:
+    S = A B^T (both operands from swizzled shared memory, K-major, each
+    warpgroup on its 64 rows of a 128-row tile) and C = bf16(S) V (S's
+    accumulators as the register A operand, V MN-major), against
+    torch.matmul in float32. D = 48 reads zero-filled columns."""
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.library()
+    rng = np.random.RandomState(D)
+    a, b, v = (_randn(rng, shape, torch.bfloat16, cuda)
+               for shape in ((128, D), (64, D), (64, D)))
+    s = torch.full((128, 64), float("nan"), device=cuda)
+    c = torch.full((128, D), float("nan"), device=cuda)
+    _build.check(lib, lib.rtt_wgmma_probe(
+        a.data_ptr(), b.data_ptr(), v.data_ptr(), s.data_ptr(), c.data_ptr(),
+        D, _build.current_stream(a)), "wgmma_probe")
+    torch.cuda.synchronize()
+    want_s = a.float() @ b.float().T
+    torch.testing.assert_close(s, want_s, atol=1e-3, rtol=1e-4)
+    # From the kernel's own S: a sum-order difference may round an entry
+    # of S to the neighbouring bf16.
+    want_c = s.to(torch.bfloat16).float() @ v.float()
+    torch.testing.assert_close(c, want_c, atol=1e-3, rtol=1e-4)
 
 
 def test_gradients_flow_through_the_flash_kernels(cuda):

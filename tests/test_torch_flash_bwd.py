@@ -46,10 +46,11 @@ def test_backward_matches_pallas_kernels(case, monkeypatch):
     if case == "per_head":
         # Both packages take their per-query-head dK/dV path.
         monkeypatch.setattr(jax_fa, "_DKV_GROUP_VMEM_BUDGET", 0)
-        monkeypatch.setattr(fa, "DKV_GROUPED_MIN_BLOCKS", 10 ** 9)
+        monkeypatch.setattr(fa, "DKV_GRID", "per_head")
     else:  # a grid this small would take the per-head path on the card
-        monkeypatch.setattr(fa, "DKV_GROUPED_MIN_BLOCKS", 0)
-    assert fa.dkv_per_head(B, H, Hkv, Skv, D) == (case == "per_head")
+        monkeypatch.setattr(fa, "DKV_GRID", "kv_head")
+    assert fa.dkv_per_head(B, H, Hkv, Sq, Skv, D, dtype=torch.float32) == (
+        case == "per_head")
     rng = np.random.RandomState(len(case))
     q = rng.randn(B, Sq, H, D).astype(np.float32)
     k = rng.randn(B, Skv, Hkv, D).astype(np.float32)
@@ -98,12 +99,44 @@ def test_wrapper_on_cpu_is_the_plain_backward_and_counts_nothing():
 
 
 def test_dkv_switch_follows_the_grid_size():
-    """At the 8B shapes (B=1, H=32, Hkv=8, D=128) the KV-head grid has 8
-    blocks per 64 keys: 64 at S = 512 (per-head) and 256 at S = 2048
-    (grouped). MHA never takes the per-head grid."""
-    assert fa.dkv_per_head(1, 32, 8, 512, 128)
-    assert not fa.dkv_per_head(1, 32, 8, 2048, 128)
-    assert not fa.dkv_per_head(1, 8, 8, 64, 128)
-    # D > 128 halves the tile rows, doubling the blocks.
-    assert fa.dkv_per_head(1, 32, 8, 1024, 128)
-    assert not fa.dkv_per_head(1, 32, 8, 1024, 256)
+    """The dK/dV grid rule at the 8B shapes (H=32, Hkv=8, D=128, causal,
+    bf16), by the longest block chain. A KV-head block of key tile 0 walks
+    rep = 4 heads x S/64 query tiles, a per-head block S/64: at B = 1 the
+    KV-head grid's 8 x S/128 blocks leave its chain above the steps each of
+    the 132 SMs gets, so per-head is faster (S = 512 and 2048); at B = 8
+    the steps over the SMs exceed either chain and the per-head grid's
+    float32 round trip decides for the KV-head grid. MHA never takes the
+    per-head grid; DKV_GRID forces either."""
+    bf16 = torch.bfloat16
+    assert fa.dkv_per_head(1, 32, 8, 512, 512, 128, dtype=bf16)
+    assert fa.dkv_per_head(1, 32, 8, 2048, 2048, 128, dtype=bf16)
+    assert not fa.dkv_per_head(8, 32, 8, 2048, 2048, 128, dtype=bf16)
+    assert not fa.dkv_per_head(8, 32, 8, 512, 512, 128, dtype=bf16)
+    assert not fa.dkv_per_head(1, 8, 8, 2048, 2048, 128, dtype=bf16)
+    # The chains behind the B = 1, S = 2048 decision: 128 steps (KV-head)
+    # against the larger of 32 (per-head) and ceil(8704 / 132) = 66.
+    kv, ph = fa.dkv_grid_estimates(1, 32, 8, 2048, 2048, 128, dtype=bf16)
+    step = 8.0 * 128 * 64 * 128 / fa.DKV_SM_FLOPS_PER_S[True]
+    assert kv == pytest.approx(128 * step)
+    assert ph == pytest.approx(66 * step + 4 * 2048 * 32 * 128 * 4
+                               / fa.HBM_BYTES_PER_S)
+    # Non-causal: every block chains the same, and a grid that fills the
+    # SMs once (B = 1, 128 KV-head blocks) is bound by its chain.
+    kv, ph = fa.dkv_grid_estimates(1, 32, 8, 2048, 2048, 128, dtype=bf16,
+                                   causal=False)
+    assert kv == pytest.approx(128 * step)
+    # The scalar kernels' tiles (float32, odd D, and half rows past D 128),
+    # then forcing.
+    assert fa.bwd_tiles(torch.float32, 128) == (64, 64)
+    assert fa.bwd_tiles(bf16, 100) == (64, 64)
+    assert fa.bwd_tiles(bf16, 256) == (32, 32)
+    assert fa.bwd_tiles(bf16, 128) == (128, 64)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fa, "DKV_GRID", "kv_head")
+        assert not fa.dkv_per_head(1, 32, 8, 2048, 2048, 128)
+        mp.setattr(fa, "DKV_GRID", "per_head")
+        assert fa.dkv_per_head(8, 32, 8, 2048, 2048, 128)
+        assert not fa.dkv_per_head(8, 8, 8, 2048, 2048, 128)
+        mp.setattr(fa, "DKV_GRID", "neither")
+        with pytest.raises(ValueError, match="DKV_GRID"):
+            fa.dkv_per_head(1, 32, 8, 2048, 2048, 128)
