@@ -10,9 +10,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
   2. build the CUDA kernels from ray_tpu_torch/ops/csrc (timed);
   3. each forward kernel against its plain PyTorch version at the
      Llama-3-8B shapes in bf16: max-abs error against a stated tolerance,
-     and times from CUDA events beside the bound, the plain version and,
-     for flash, F.scaled_dot_product_attention as a yardstick (the port
-     never calls it);
+     and times on the card alone and a call at a time back to back (host
+     included), both by CUDA events, beside the bound, the plain version and, for
+     flash, F.scaled_dot_product_attention as a yardstick (the port never
+     calls it), with TFLOP/s at S = 128, 512 and 2048; paged decode at the
+     table's B = 8 and the engine's B = 4, with the L2 warm and cold;
   3b. each flash backward kernel (dQ, dK/dV on the KV-head grid, dK/dV per
      query head) the same way at B = 1 and 8, S = 512 and 2048, through the
      wrapper flash_attention_bwd with each grid forced, with the backward
@@ -57,6 +59,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+L2_BYTES = 50 * 2**20           # H100 L2 cache
 
 
 def log(msg: str) -> None:
@@ -70,6 +73,31 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call on the card alone, by CUDA events: a
+    sleep kernel holds the stream while the host queues all ``reps`` calls,
+    so the card runs them back to back. Unlike :func:`cuda_ms` it leaves
+    out the host's time between launches, which is what a few-microsecond
+    kernel behind a Python wrapper is otherwise timed by."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queue_s = time.perf_counter() - t0  # the host's time to queue them
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4 * queue_s * 2e9))  # twice that at up to 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -104,12 +132,16 @@ def phase_build():
         f"(nvcc build {_build.build_seconds} s) from {srcs}")
     text = _build.build_log_path().read_text()
     for line in text.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                   "warning")):
             log(f"[build] {line.strip()}")
 
 
 def phase_kernels():
-    """Kernel against plain version at the 8B shapes, bf16."""
+    """Kernel against plain version at the 8B shapes, bf16. Every case is
+    checked first; then all are timed by CUDA events, a call at a time
+    back to back (host included) and with the calls queued ahead of the
+    card (:func:`device_ms`, the card alone)."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
     import torch.nn.functional as F
@@ -117,7 +149,7 @@ def phase_kernels():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
-    results = {}
+    cases = {}  # name -> (timed calls, report(ev, dms) -> result, reps)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -133,53 +165,107 @@ def phase_kernels():
         torch.cuda.synchronize()
         err_o = (o.float() - ro.float()).abs().max().item()
         err_l = (lse - rl).abs().max().item()
-        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-        plain_ms = cuda_ms(
-            lambda: fa.flash_attention_reference(q, k, v, causal=True))
+        assert err_o <= tol_o and err_l <= tol_lse, (S, err_o, err_l)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+        runs = {
+            "kernel": lambda q=q, k=k, v=v: fa.flash_attention_fwd(
+                q, k, v, causal=True),
+            "plain": lambda q=q, k=k, v=v: fa.flash_attention_reference(
+                q, k, v, causal=True),
+            "sdpa": lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)}
         pairs = S * (S + 1) // 2
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * B * H * S
-        b_ms, b_by = bound(nbytes, 4.0 * B * H * D * pairs, BF16_FLOPS_PER_S)
-        log(f"[kernels] flash_fwd S={S}: max|dO|={err_o:.3e} (tol {tol_o}) "
-            f"max|dlse|={err_l:.3e} (tol {tol_lse}); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by})")
-        assert err_o <= tol_o and err_l <= tol_lse, (err_o, err_l)
-        results[f"flash_fwd_S{S}"] = dict(
-            max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
+        flops = 4.0 * B * H * D * pairs  # causal pairs, 2 products
 
-    # paged decode: B=8 slots, page 16, Pmax 32 (max_len 512), lengths
-    # across page boundaries, shuffled page tables over a 256-page pool.
-    B, page, Pmax = 8, 16, 32
-    P = B * Pmax
-    q = randn(B, H, D)
-    kp, vp = randn(Hkv, P, page, D), randn(Hkv, P, page, D)
-    perm = torch.randperm(P, generator=gen, device=dev)
-    table = perm.reshape(B, Pmax).to(torch.int32).contiguous()
-    lengths = torch.tensor([0, 15, 16, 17, 100, 255, 256, 511],
-                           dtype=torch.int32, device=dev)
-    out = pa.paged_decode_attention(q, kp, vp, table, lengths)
-    ref = pa.paged_decode_reference(q, kp, vp, table, lengths)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    ms = cuda_ms(lambda: pa.paged_decode_attention(q, kp, vp, table, lengths))
-    plain_ms = cuda_ms(
-        lambda: pa.paged_decode_reference(q, kp, vp, table, lengths))
-    keys = int((lengths + 1).sum())
-    nbytes = 2 * 2 * q.numel() + 2 * 2 * keys * Hkv * D + 4 * (
-        table.numel() + B)
-    b_ms, b_by = bound(nbytes, 4.0 * keys * H * D, BF16_FLOPS_PER_S)
-    log(f"[kernels] paged_decode B={B}: max|d|={err:.3e} (tol {tol_o}); "
-        f"kernel {ms:.4f} ms, plain gather {plain_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by})")
-    assert err <= tol_o, err
-    results["paged_decode"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    return results
+        def report(ev, dms, S=S, nbytes=nbytes, flops=flops, err_o=err_o,
+                   err_l=err_l):
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+            log(f"[kernels] flash_fwd S={S}: max|dO|={err_o:.3e} (tol "
+                f"{tol_o}) max|dlse|={err_l:.3e} (tol {tol_lse}); ms on the card alone: "
+                f"kernel {dms['kernel']:.4f} "
+                f"({flops / dms['kernel'] / 1e9:.1f} TFLOP/s), plain "
+                f"{dms['plain']:.4f}, sdpa {dms['sdpa']:.4f} "
+                f"({flops / dms['sdpa'] / 1e9:.1f} TFLOP/s; kernel / sdpa "
+                f"{dms['kernel'] / dms['sdpa']:.2f}x); ms a call back to back"
+                f" (CUDA events, host included): kernel {ev['kernel']:.4f}, "
+                f"plain {ev['plain']:.4f}, sdpa {ev['sdpa']:.4f}; bound "
+                f"{b_ms:.5f} ms ({b_by})")
+            return dict(max_abs_err=err_o, ms=dms["kernel"],
+                        plain_ms=dms["plain"], bound_ms=b_ms, bound_by=b_by,
+                        library_ms=dms["sdpa"], event_ms=ev["kernel"])
+
+        cases[f"flash_fwd_S{S}"] = (runs, report, {})
+
+    # paged decode, page 16, Pmax 32 (max_len 512), shuffled page tables:
+    # the table's B=8 with lengths across page boundaries over a 256-page
+    # pool, and the 8B engine's decode step (4 slots, lengths 300/200/130/
+    # 100). Warm: the same pool every launch, left in the 50 MB L2 by the
+    # last; cold: launches rotate through copies of the pools, enough that
+    # the bytes the launches between two uses of one copy read pass the
+    # L2, as a decode step finds a layer's pool after 31 other layers.
+    page, Pmax = 16, 32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, lens in ((8, [0, 15, 16, 17, 100, 255, 256, 511]),
+                    (4, [300, 200, 130, 100])):
+        P = B * Pmax
+        q = randn(B, H, D)
+        kp, vp = randn(Hkv, P, page, D), randn(Hkv, P, page, D)
+        perm = torch.randperm(P, generator=gen, device=dev)
+        table = perm.reshape(B, Pmax).to(torch.int32).contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = pa.paged_decode_attention(q, kp, vp, table, lengths)
+        ref = pa.paged_decode_reference(q, kp, vp, table, lengths)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol_o, (B, err)
+        keys = int((lengths + 1).sum())
+        nbytes = 2 * 2 * q.numel() + 2 * 2 * keys * Hkv * D + 4 * (
+            table.numel() + B)
+        copies = [(kp, vp)] + [(kp.clone(), vp.clone())
+                               for _ in range(-(-L2_BYTES // nbytes))]
+        turn = iter(range(1 << 30))
+        args = (q, table, lengths)
+
+        def cold(copies=copies, turn=turn, args=args):
+            kc, vc = copies[next(turn) % len(copies)]
+            pa.paged_decode_attention(args[0], kc, vc, *args[1:])
+
+        runs = {
+            "kernel": lambda q=q, kp=kp, vp=vp, args=args:
+                pa.paged_decode_attention(q, kp, vp, *args[1:]),
+            "cold": cold,
+            "plain": lambda q=q, kp=kp, vp=vp, args=args:
+                pa.paged_decode_reference(q, kp, vp, *args[1:])}
+
+        def report(ev, dms, B=B, lens=lens, keys=keys, nbytes=nbytes,
+                   n_copies=len(copies), err=err):
+            b_ms, b_by = bound(nbytes, 4.0 * keys * H * D, BF16_FLOPS_PER_S)
+            ms, cold_ms = dms["kernel"], dms["cold"]
+            log(f"[kernels] paged_decode B={B} (lengths {lens}, "
+                f"{pa.paged_splits(B, Hkv, Pmax, page, sms)} splits): "
+                f"max|d|={err:.3e} (tol {tol_o}); ms on the card alone: kernel "
+                f"{ms:.4f} warm L2 ({nbytes / ms / 1e6:.0f} GB/s), "
+                f"{cold_ms:.4f} cold L2 ({nbytes / cold_ms / 1e6:.0f} GB/s; "
+                f"{n_copies} pool copies in turn, "
+                f"{(n_copies - 1) * nbytes / 1e6:.0f} MB read between two "
+                f"uses of one), plain gather {dms['plain']:.4f}; ms a call "
+                f"back to back (CUDA events, host included): kernel "
+                f"{ev['kernel']:.4f} warm, {ev['cold']:.4f} cold; bound "
+                f"{b_ms:.5f} ms ({b_by})")
+            return dict(max_abs_err=err, ms=ms, plain_ms=dms["plain"],
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        cold_l2_ms=cold_ms, event_ms=ev["kernel"])
+
+        cases[f"paged_decode_B{B}"] = (runs, report,
+                                       {"cold": 4 * len(copies)})
+
+    ev = {c: {n: cuda_ms(fn, reps=reps.get(n, 20)) for n, fn in runs.items()}
+          for c, (runs, _, reps) in cases.items()}
+    dms = {c: {n: device_ms(fn, reps=reps.get(n, 20))
+               for n, fn in runs.items()}
+           for c, (runs, _, reps) in cases.items()}
+    return {c: report(ev[c], dms[c]) for c, (_, report, _) in cases.items()}
 
 
 def phase_backward_kernels():
@@ -915,7 +1001,7 @@ def main() -> int:
              source=src + "paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:28",
              launches=launches["paged_decode"], shape="B=8 H=32 Hkv=8 D=128 "
-             "page=16 Pmax=32 bf16", **kern["paged_decode"]),
+             "page=16 Pmax=32 bf16, warm L2", **kern["paged_decode_B8"]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(f"[card] {card}")

@@ -137,7 +137,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rtt_wgmma_probe.argtypes = [p, p, p, p, p, i, p]
     lib.rtt_wgmma_probe.restype = i
     lib.rtt_paged_decode.argtypes = [
-        i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+        i, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p, i, p, p]
     lib.rtt_paged_decode.restype = i
     lib.rtt_error_string.argtypes = [i]
     lib.rtt_error_string.restype = ctypes.c_char_p

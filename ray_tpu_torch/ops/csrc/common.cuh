@@ -114,70 +114,8 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
   }
 }
 
-// bf16 tiles for the tensor-core kernels sit in shared memory with kPad
-// elements of row padding (pitch DMAX + kPad), which makes every mma.sync
-// fragment load conflict-free.
-constexpr int kPad = 8;
-
-// Copies a bf16 tile's rows [0, rows) (row stride `stride`, 16-byte
-// aligned) into shared memory with pitch DMAX + kPad; zero past `rows`
-// and D.
-template <int ROWS, int DMAX, int THREADS>
-__device__ __forceinline__ void copy_tile_bf16(
-    const __nv_bfloat16* __restrict__ src, int64_t stride, int rows, int D,
-    __nv_bfloat16* dst) {
-  constexpr int E = kVec<__nv_bfloat16>;
-  constexpr int VPR = DMAX / E;
-  constexpr int PER = ROWS * VPR / THREADS;
-  uint4 raw[PER];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = u * THREADS + threadIdx.x;
-    const int r = i / VPR;
-    const int c = (i % VPR) * E;
-    raw[u] = (r < rows && c < D) ? load16(src + r * stride + c)
-                                 : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = u * THREADS + threadIdx.x;
-    const int r = i / VPR;
-    const int c = (i % VPR) * E;
-    *reinterpret_cast<uint4*>(dst + r * (DMAX + kPad) + c) = raw[u];
-  }
-}
-
-// Two neighbouring bf16 of a row, as one 32-bit fragment register.
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// Rows `row` and `row + 1` of column `col` of a bf16 tile with pitch
-// `pitch`, packed as one fragment register (the lower row in the low half):
-// the B operand of a product whose reduction runs down the tile's rows.
-__device__ __forceinline__ unsigned ld_col_pair(const __nv_bfloat16* tile,
-                                                int row, int col, int pitch) {
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(tile);
-  return unsigned(u[row * pitch + col]) |
-         (unsigned(u[(row + 1) * pitch + col]) << 16);
-}
-
-// One warp-wide tensor-core product D = A B + D, A 16x16 and B 16x8 in
-// bf16, D 16x8 in float (PTX mma.sync.m16n8k16). With g = lane / 4 and
-// t = lane % 4, each lane holds: a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
-// a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..]; b[0] = B[2t..2t+1][g],
-// b[1] = B[2t+8..2t+9][g]; c = D[g][2t], D[g][2t+1], D[g+8][2t],
-// D[g+8][2t+1]. Each 32-bit register packs two bf16, the lower index in the
-// low half.
-__device__ __forceinline__ void mma_16816_bf16(float* c, const unsigned* a,
-                                               const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
+// Two floats rounded to bf16 in one register, the lower index in the low
+// half.
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return unsigned(__bfloat16_as_ushort(__float2bfloat16(lo))) |
          (unsigned(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);

@@ -1,12 +1,13 @@
 // Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel ray_tpu/ops/flash_attention.py
-// `_flash_fwd_kernel` (launched by `_flash_fwd`). Same function: the
-// flash-attention-2 forward with GQA (query head h reads KV head
-// h / (H / Hkv)), causal masking in global coordinates
-// (query i sits at q_offset + i, key j at kv_offset + j), and the
-// per-row logsumexp the backward and ring attention need. A fully masked
-// row gives O = 0 and lse = -1e30 (the Pallas kernel's l == 0 guard).
+// `_flash_fwd_kernel` (:40, launched by `_flash_fwd` at :117). Same
+// function: the flash-attention-2 forward with GQA (query head h reads KV
+// head h / (H / Hkv)), causal masking in global coordinates (query i sits
+// at q_offset + i, key j at kv_offset + j), and the per-row logsumexp (the
+// natural log, [B*H, Sq] float32) the backward and ring attention need. A
+// fully masked row gives O = 0 and lse = -1e30 (the Pallas kernel's
+// l == 0 guard).
 //
 // Layout: q [B, Sq, H, D], k/v [B, Skv, Hkv, D], read through their batch,
 // sequence and head strides (the last dimension is contiguous), so the
@@ -15,44 +16,81 @@
 //
 // What bounds it on the H100: causal attention over S keys does about
 // S/2 flops per byte of Q/K/V/O it must move (bf16, D = 128, GQA 4:1):
-// about 205 at S = 512, under the card's ~295 flops/byte, so at the 8B
-// prefill buckets (S 128..512) the least time is set by bytes, and from
-// S ~ 750 on by operations. Either way the score matrix must never reach
-// device memory, which would multiply the bytes by ~S/D. The design keeps
-// every intermediate on chip: one block owns a
-// 64-row Q tile of one (batch, head) in shared memory, streams 64-row K/V
-// tiles of its KV head through shared memory, and keeps the running max,
-// denominator and the [64, D] accumulator in float registers (online
-// softmax). Causal tiles past the diagonal are never loaded: the loop's
-// upper bound comes from the global-coordinate causal rule.
+// about 205 at S = 512, under the card's ~295 flops/byte, so up to S ~ 750
+// (the 8B prefill buckets, 128..512) the least time is set by bytes, and
+// above it (the training length, 2048) by operations. Either way the score
+// matrix must never reach device memory, which would multiply the bytes by
+// ~S/D: every intermediate stays on chip (online softmax), and causal key
+// tiles past a block's last query are never loaded.
 //
 // Two kernels compute this, chosen from the inputs at each launch:
-// - bf16 with D a multiple of 16 up to 128 and 16-byte-aligned rows (the
-//   8B model's prefill): `flash_fwd_mma_kernel`, both products on the
-//   tensor cores (mma.sync m16n8k16, bf16 in, float accumulate; the
-//   probabilities are rounded to bf16 for PV, as flash-attention-2 does).
-//   Shared memory: three bf16 tiles [64][D+8], 52,224 bytes at D = 128.
+// - bf16 with D a multiple of 16 up to 128, 16-byte-aligned rows and
+//   output strides a multiple of 8 (the 8B model's prefill and training
+//   forward): `flash_fwd_wgmma_kernel` below, designed for Hopper. What
+//   holds a tensor-core forward back, and what it does about each:
+//   1. Nothing in flight while the tensor cores work. One producer warp
+//      copies K and V tiles (64 keys) with TMA into a ring of kStages = 4
+//      stages, each with a `full` and an `empty` mbarrier, up to 4 tiles
+//      ahead of the consumers; TMA zero-fills ragged rows and columns past
+//      D and computes the swizzled addresses itself, so the consumer
+//      warpgroups issue no copies and pass no block-wide barrier after the
+//      start. (A first version had the consumers copy with cp.async behind
+//      one __syncthreads a tile; the copies' issue and the barrier cost it
+//      more than the loads' latency did: deeper rings gained nothing.)
+//   2. Products fed 32 bits at a time, V read with 16-bit loads, every warp
+//      rereading whole tiles. Both products are wgmma on two consumer
+//      warpgroups (64 query rows each): S = Q K^T is SS m64n64k16 with both
+//      operands K-major in 128-byte-swizzled shared memory (Q resident, K
+//      streamed); O += P V is RS m64nDk16 with P handed from S's
+//      accumulators to the register A operand (wgmma.cuh: a_fragment) and V
+//      read MN-major, the form the backward's dQ += dS K uses. The softmax
+//      of tile j runs while the tensor cores add tile j-1's P V
+//      (flash-attention-3's intra-warpgroup overlap): S_j and P_{j-1} V_{j-1}
+//      are two commit groups, waited for one after the other. Measured
+//      slower on the card and left out: 128-key tiles (3 stages fit),
+//      issuing S_{j+1} before tile j's softmax (a second S tile of
+//      registers; it spilled), and warpgroups taking turns at the tensor
+//      cores through named barriers (flash-attention-3's ping-pong).
+//   3. A mask and a branch on every entry. The softmax runs in the log2
+//      domain: one FMA per entry (s * scale * log2(e) - max) and ex2.approx.
+//      The mask writes -inf into the score, in a loop that only tiles
+//      crossing the causal diagonal or the ragged key edge run; a row whose
+//      running max is still -inf takes 0 as its max, so exp2(-inf - 0) = 0
+//      and no NaN reaches a live row of the same tile.
+//   4. The longest blocks started last. The grid is (B*H, query tiles) with
+//      the last query tile, the longest causal chain (32 key tiles of 64
+//      keys at S = 2048 against 2 for the first), dispatched first.
+//   Tiles by the register budget (288 threads: at most 224 registers a
+//   thread): a consumer thread holds 64 O floats (D = 128), 32 S floats and
+//   two P fragments of 16 registers (the one in flight and the next); one
+//   block an SM. Shared memory: the 128-row Q tile (32 KB), 4 stages of
+//   64-row K and V tiles (128 KB) and 9 barriers, 164,936 bytes at D = 128.
+//   At S = 512 (B = 1, H = 32) the grid is 128 blocks, under one wave of
+//   132 SMs, and needs no smaller query tile: 64-row blocks would make 256
+//   blocks of 145 KB that cannot share an SM, two waves whose last block
+//   walks the same 8 key tiles as the longest 128-row block does now.
 // - everything else, float32 included (its parity checks must not see
 //   bf16 or TF32 rounding): `flash_fwd_kernel`, scalar float FMAs on the
 //   CUDA cores, each thread owning a 4 x 8 tile of scores and a 4 x Dmax/8
 //   tile of the output. Shared memory: float Q and K tiles [64][Dmax+1],
 //   a V tile [64][Dmax] and a [64][65] probability tile, 115,456 bytes at
-//   Dmax = 128 and 213,760 at Dmax = 256.
-// Both take tiles in as 16-byte loads, a batch per thread issued before any
-// is stored, when strides and D allow it (else one element at a time).
+//   Dmax = 128 and 213,760 at Dmax = 256. It takes tiles in as 16-byte
+//   loads, a batch per thread issued before any is stored, when strides and
+//   D allow it (else one element at a time).
 // Above 48 KB of shared memory a launch needs the dynamic-shared-memory
-// attribute, which the entry point sets before every launch. wgmma with
-// TMA-fed tiles and a producer warp is the next step for speed.
+// attribute, which the entry point sets before every launch.
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using rtt::from_float;
-using rtt::kPad;
-using rtt::ld32;
 using rtt::kNegInf;
 using rtt::to_float;
 
@@ -214,195 +252,331 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16 on the tensor cores ------------------------------------------
+// ---- bf16 on Hopper's tensor cores: wgmma ------------------------------
 //
-// The same function for bf16 inputs with D a multiple of 16 and at most
-// 128: each of the 4 warps owns 16 query rows of the 64-row tile, and QK^T
-// and PV run as mma.sync m16n8k16 (bf16 in, float accumulate). The scores
-// stay in the accumulator registers: the online softmax runs on them in
-// place (a row's values sit in 4 neighbouring lanes), and the
-// probabilities are repacked as bf16 A-fragments for PV without a trip
-// through shared memory. Tiles sit in shared memory as bf16 with 8
-// elements of row padding, which makes every fragment load conflict-free.
+// A block owns 128 query rows of one (batch, head), 64 a consumer
+// warpgroup, and has one producer warp. The producer's first lane copies
+// the Q tile and then K/V tile after K/V tile with TMA into a ring of
+// kStages stages; each stage has a `full` barrier (the tile has landed)
+// and an `empty` barrier (both consumer warpgroups are done with it), so
+// the producer runs up to kStages tiles ahead and the two consumer
+// warpgroups drift apart freely: no barrier of the whole block after the
+// start. Step j of a consumer warpgroup (j = 0 .. steps, one past the
+// block's last key tile):
+//   wait for tile j (full); S_j = Q K_j^T (commit), O += P_{j-1} V_{j-1}
+//   (commit); wait for S_j, softmax it into P_j (registers) while
+//   P_{j-1} V_{j-1} runs; wait for that, rescale O by exp2(m_{j-1} - m_j);
+//   release tile j - 1 (empty).
+// A warpgroup whose rows see fewer key tiles than the block (the first one
+// on the causal diagonal) stops computing after its own last tile, adding
+// that tile's P V in its next step, and releases the tiles it skips.
+// TMA zero-fills rows past the tensor and columns past D.
 
-constexpr size_t mma_smem_bytes(int dmax) {
-  return sizeof(__nv_bfloat16) * size_t(3 * kTile) * (dmax + kPad);
+namespace sm90 = rtt::sm90;
+
+constexpr int kWarpgroups = 2;
+constexpr int kConsumers = 128 * kWarpgroups;
+constexpr int kFwdThreads = kConsumers + 32;  // and the producer warp
+constexpr int kBlockRows = 64 * kWarpgroups;  // query rows a block owns
+constexpr int kKeyRows = 64;                  // keys a K/V tile (S m64n64)
+constexpr int kStages = 4;                    // K/V tiles in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory: 1,024 bytes of alignment slack, the Q tile, per stage a K
+// and a V tile, and the barriers (Q, then full and empty per stage).
+// 164,936 bytes at D = 128.
+template <int DMAX>
+constexpr size_t wgmma_smem_bytes() {
+  return 1024 + size_t(sm90::SwTile<kBlockRows, DMAX>::kBytes) +
+         kStages * 2 * size_t(sm90::SwTile<kKeyRows, DMAX>::kBytes) +
+         8 * (1 + 2 * kStages);
 }
 
+// Key tiles [0, n) that the query rows before `q_end` see.
+__device__ __forceinline__ int key_tiles_before(int q_end, int Skv,
+                                                int causal, int q_offset,
+                                                int kv_offset) {
+  const int nk = (Skv + kKeyRows - 1) / kKeyRows;
+  if (!causal) return nk;
+  const int reach = q_offset + q_end - 1 - kv_offset;  // last key it sees
+  return reach < 0 ? 0 : min(nk, reach / kKeyRows + 1);
+}
+
+// Registers the compiler may not move across this point (the P fragment in
+// flight as wgmma's A operand until its wait).
+template <int N>
+__device__ __forceinline__ void fence_fragments(uint32_t (&p)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[i][e])::"memory");
+}
+
+// The tensor maps of q [B, Sq, H, D], k and v [B, Skv, Hkv, D]: 4-d,
+// innermost first (d, head, row, batch), boxes of 64 columns (128 bytes,
+// one swizzle span) by the tile's rows of one head, 128-byte swizzle.
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
 template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int H, int Hkv, int Sq, int Skv, int D, int64_t q_sb,
-                     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                     int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                     int64_t o_sb, int64_t o_ss, int64_t o_sh, float scale,
-                     int causal, int q_offset, int kv_offset) {
-  constexpr int PITCH = DMAX + kPad;
-  constexpr int NT = kTile / 8;  // key n-tiles of the score tile
-  constexpr int ND = DMAX / 8;   // column n-tiles of the output
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ FwdMaps maps,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int H, int Hkv, int Sq, int Skv, int D, int64_t o_sb,
+                       int64_t o_ss, int64_t o_sh, float scale, int causal,
+                       int q_offset, int kv_offset) {
+  constexpr int QT = sm90::SwTile<kBlockRows, DMAX>::kBytes;
+  constexpr int KT = sm90::SwTile<kKeyRows, DMAX>::kBytes;
+  constexpr int NK = DMAX / 16;      // k-steps of S over d
+  constexpr int NS = kKeyRows / 16;  // k-steps of P V over a tile's keys
+  constexpr int NO = DMAX / 2;       // O accumulator floats a thread
+  constexpr int NSC = kKeyRows / 2;  // S accumulator floats a thread
 
   extern __shared__ float4 rtt_smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(rtt_smem);
-  __nv_bfloat16* k_s = q_s + kTile * PITCH;
-  __nv_bfloat16* v_s = k_s + kTile * PITCH;
+  const uint32_t q_s = (sm90::smem_addr(rtt_smem) + 1023) & ~1023u;
+  const uint32_t ring = q_s + QT;  // stage s: K at ring + 2 KT s, V next
+  const uint32_t q_full = ring + kStages * 2 * KT;
+  const uint32_t full = q_full + 8;            // [kStages]
+  const uint32_t empty = full + 8 * kStages;   // [kStages]
 
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16 + g;  // this lane's rows: r0, r0 + 8
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * kBlockQ;
+  // blockIdx.y counts query tiles from the last: longest chains first.
+  const int q0 =
+      ((Sq + kBlockRows - 1) / kBlockRows - 1 - int(blockIdx.y)) * kBlockRows;
+  const int steps = key_tiles_before(min(q0 + kBlockRows, Sq), Skv, causal,
+                                     q_offset, kv_offset);
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-  rtt::copy_tile_bf16<kTile, DMAX, kThreads>(
-      qb + q0 * q_ss, q_ss, min(kBlockQ, Sq - q0), D, q_s);
+  if (tid == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, kWarpgroups);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int nk = (Skv + kBlockK - 1) / kBlockK;
-  int hi = nk;
-  if (causal) {
-    const int last_q = q_offset + min(q0 + kBlockQ, Sq) - 1;
-    const int reach = last_q - kv_offset;
-    hi = reach < 0 ? 0 : min(nk, reach / kBlockK + 1);
+  if (tid >= kConsumers) {  // the producer warp
+    if (tid == kConsumers) {
+      sm90::mbar_arrive_expect_tx(q_full, QT);
+#pragma unroll
+      for (int p = 0; p < DMAX / 64; ++p)
+        sm90::tma_load_4d(q_s + p * (QT / (DMAX / 64)), &maps.q, q_full,
+                          64 * p, h, q0, b);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages)
+          sm90::mbar_wait(empty + 8 * s, ((i / kStages) - 1) & 1);
+        const uint32_t k_st = ring + s * 2 * KT;
+        sm90::mbar_arrive_expect_tx(full + 8 * s, 2 * KT);
+#pragma unroll
+        for (int p = 0; p < DMAX / 64; ++p) {
+          sm90::tma_load_4d(k_st + p * (KT / (DMAX / 64)), &maps.k,
+                            full + 8 * s, 64 * p, hk, i * kKeyRows, b);
+          sm90::tma_load_4d(k_st + KT + p * (KT / (DMAX / 64)), &maps.v,
+                            full + 8 * s, 64 * p, hk, i * kKeyRows, b);
+        }
+      }
+    }
+    return;
   }
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int qw = q0 + 64 * wg;         // this warpgroup's first row
+  const int row = qw + 16 * warp + g;  // this thread's rows: row, row + 8
+  const int wg_steps =
+      qw < Sq ? key_tiles_before(min(qw + 64, Sq), Skv, causal, q_offset,
+                                 kv_offset)
+              : 0;
 
-  for (int j = 0; j < hi; ++j) {
-    const int k0 = j * kBlockK;
-    __syncthreads();  // the previous tile's readers are done
-    const int rows = min(kBlockK, Skv - k0);
-    rtt::copy_tile_bf16<kTile, DMAX, kThreads>(kb + k0 * k_ss, k_ss, rows, D,
-                                               k_s);
-    rtt::copy_tile_bf16<kTile, DMAX, kThreads>(vb + k0 * v_ss, v_ss, rows, D,
-                                               v_s);
-    __syncthreads();
+  const float neg_inf = __int_as_float(0xff800000);
+  const float scale_log2 = scale * kLog2e;
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  // Per row (row, row + 8): the running max of the scaled scores in log2
+  // units (-inf until a key is seen), and this thread's part of the running
+  // sum (its 16 of each tile's 64 columns; the 4 lanes of a row add theirs
+  // at the end).
+  float m[2] = {neg_inf, neg_inf}, l[2] = {0.f, 0.f};
+  uint32_t p_prev[NS][4], p_cur[NS][4];
 
-    // S = Q K^T for the warp's 16 rows x 64 keys.
-    float s[NT][4];
+  sm90::mbar_wait(q_full, 0);
+  for (int j = 0; j <= steps; ++j) {
+    if (j < steps) sm90::mbar_wait(full + 8 * (j % kStages), (j / kStages) & 1);
+    const bool has_s = j < wg_steps;
+    // Every step of both warpgroups takes its turn, with products or not,
+    // so the turns pair up; the last turn of warpgroup 1 hands nothing on.
+    if (has_s || (j > 0 && j <= wg_steps)) {  // warpgroup-uniform
+      float s[NSC];
+      sm90::fence_operand(acc);
+      sm90::wgmma_fence();
+      if (has_s) {  // S_j = Q K_j^T
+        const uint32_t k_st = ring + (j % kStages) * 2 * KT;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      const unsigned a[4] = {ld32(q_s + r0 * PITCH + d0 + 2 * t),
-                             ld32(q_s + (r0 + 8) * PITCH + d0 + 2 * t),
-                             ld32(q_s + r0 * PITCH + d0 + 8 + 2 * t),
-                             ld32(q_s + (r0 + 8) * PITCH + d0 + 8 + 2 * t)};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kr = k_s + (n * 8 + g) * PITCH + d0 + 2 * t;
-        const unsigned bb[2] = {ld32(kr), ld32(kr + 8)};
-        rtt::mma_16816_bf16(s[n], a, bb);
+        for (int kk = 0; kk < NK; ++kk)
+          sm90::wgmma_ss_m64n64k16(
+              s, sm90::desc_kmajor<kBlockRows>(q_s, 64 * wg, kk),
+              sm90::desc_kmajor<kKeyRows>(k_st, 0, kk), kk > 0);
       }
-    }
+      sm90::wgmma_commit();
+      if (j > 0) {  // O += P_{j-1} V_{j-1}
+        const uint32_t v_st =
+            ring + ((j + kStages - 1) % kStages) * 2 * KT + KT;
+#pragma unroll
+        for (int kk = 0; kk < NS; ++kk)
+          sm90::wgmma_rs<DMAX>(acc, p_prev[kk],
+                               sm90::desc_mnmajor<kKeyRows>(v_st, kk), 1);
+      }
+      sm90::wgmma_commit();
 
-    // Online softmax on the accumulators: s[n][2*hh + e] is row r0 + 8*hh,
-    // key k0 + 8n + 2t + e; a row's 64 keys sit in the 4 lanes of group g.
+      float alpha[2];
+      if (has_s) {
+        sm90::wgmma_wait<1>();  // S_j is in; P V may still run
+        sm90::fence_operand(s);
+        // Entry 4jj + 2hh + e: row `row + 8hh`, key k0 + 8jj + 2t + e.
+        const int k0 = j * kKeyRows;
+        if (!(k0 + kKeyRows <= Skv &&
+              (!causal || kv_offset + k0 + kKeyRows - 1 <= q_offset + qw))) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int qpos = q_offset + q0 + r0 + 8 * hh;
-      float mx = m[hh];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + n * 8 + 2 * t + e;
-          const bool ok = col < Skv && (!causal || kv_offset + col <= qpos);
-          const float x = ok ? s[n][2 * hh + e] * scale : kNegInf;
-          s[n][2 * hh + e] = x;
-          mx = fmaxf(mx, x);
+          for (int n = 0; n < NSC; ++n) {
+            const int col = k0 + 8 * (n >> 2) + 2 * t + (n & 1);
+            if (col >= Skv || (causal && kv_offset + col >
+                                             q_offset + row + 8 * ((n >> 1) & 1)))
+              s[n] = neg_inf;
+          }
         }
-      mx = rtt::group_max(mx, 4);
-      const float alpha = expf(m[hh] - mx);
-      float rs = 0.f;
+        float mx[2] = {neg_inf, neg_inf}, mu[2];
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+        for (int n = 0; n < NSC; ++n)
+          mx[(n >> 1) & 1] = fmaxf(mx[(n >> 1) & 1], s[n]);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float x = s[n][2 * hh + e];
-          const float p = x == kNegInf ? 0.f : expf(x - mx);
-          s[n][2 * hh + e] = p;
-          rs += p;
+        for (int hh = 0; hh < 2; ++hh) {
+          const float mnew =
+              fmaxf(m[hh], rtt::group_max(mx[hh], 4) * scale_log2);
+          mu[hh] = mnew == neg_inf ? 0.f : mnew;  // no -inf - -inf
+          alpha[hh] = sm90::exp2_approx(m[hh] - mu[hh]);
+          m[hh] = mnew;
         }
-      rs = rtt::group_sum(rs, 4);
-      l[hh] = l[hh] * alpha + rs;
-      m[hh] = mx;
+        float rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][2 * hh] *= alpha;
-        acc[n][2 * hh + 1] *= alpha;
+        for (int n = 0; n < NSC; ++n) {
+          const int hh = (n >> 1) & 1;
+          s[n] = sm90::exp2_approx(fmaf(s[n], scale_log2, -mu[hh]));
+          rs[hh] += s[n];
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
+#pragma unroll
+        for (int kk = 0; kk < NS; ++kk) sm90::a_fragment(s, kk, p_cur[kk]);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(acc);
+      fence_fragments(p_prev);
+      if (has_s) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n) acc[n] *= alpha[(n >> 1) & 1];
+#pragma unroll
+        for (int kk = 0; kk < NS; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p_prev[kk][e] = p_cur[kk][e];
       }
     }
-
-    // acc += P V: the score accumulators of key n-tiles 2kk, 2kk+1 are the
-    // A-fragment of keys 16kk .. 16kk+15.
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      const unsigned a[4] = {
-          rtt::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-          rtt::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          rtt::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          rtt::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int key = kk * 16 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const int col = n * 8 + g;
-        const unsigned bb[2] = {rtt::ld_col_pair(v_s, key, col, PITCH),
-                                rtt::ld_col_pair(v_s, key + 8, col, PITCH)};
-        rtt::mma_16816_bf16(acc[n], a, bb);
-      }
-    }
+    // Tile j - 1 is done with: its P V ran in this step, or this
+    // warpgroup's rows never reach it.
+    if (j > 0 && (tid & 127) == 0)
+      sm90::mbar_arrive(empty + 8 * ((j - 1) % kStages));
   }
 
+  // Entry 4jj + 2hh + e of O: row `row + 8hh`, column 8jj + 2t + e; stored
+  // as bf16 pairs.
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + r0 + 8 * hh;
-    if (row >= Sq) continue;
-    const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
-    const float inv = 1.f / l_safe;
+    const float sum = rtt::group_sum(l[hh], 4);
+    const int r = row + 8 * hh;
+    if (r >= Sq) continue;
+    const float inv = sum == 0.f ? 0.f : 1.f / sum;  // fully masked: O = 0
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < D)
-        *reinterpret_cast<unsigned*>(ob + row * o_ss + col) = rtt::pack_bf16x2(
-            acc[n][2 * hh] * inv, acc[n][2 * hh + 1] * inv);
+    for (int jj = 0; jj < DMAX / 8; ++jj) {
+      const int d = 8 * jj + 2 * t;
+      if (d < D)
+        *reinterpret_cast<unsigned*>(ob + r * o_ss + d) = rtt::pack_bf16x2(
+            acc[4 * jj + 2 * hh] * inv, acc[4 * jj + 2 * hh + 1] * inv);
     }
-    if (t == 0) lse[int64_t(bh) * Sq + row] = m[hh] + logf(l_safe);
+    if (t == 0)
+      lse[int64_t(bh) * Sq + r] =
+          sum == 0.f ? kNegInf : m[hh] * kLn2 + logf(sum);
   }
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
+// libcuda); null if the driver has none.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// The map of a bf16 [B, S, heads, D] tensor with (batch, seq, head) strides
+// in elements (multiples of 8) and boxes of 64 columns x `rows` rows.
+bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+                int D, int64_t sb, int64_t ss, int64_t sh, int rows) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2,
+                                 cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int DMAX>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int Hkv, int Sq, int Skv,
-                       int D, const int64_t* st, float scale, int causal,
-                       int q_offset, int kv_offset, cudaStream_t stream) {
-  auto kernel = flash_fwd_mma_kernel<DMAX>;
-  const size_t smem = mma_smem_bytes(DMAX);
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int B, int H, int Hkv, int Sq,
+                         int Skv, int D, const int64_t* st, float scale,
+                         int causal, int q_offset, int kv_offset,
+                         cudaStream_t stream) {
+  FwdMaps maps;
+  if (!encode_map(&maps.q, q, B, Sq, H, D, st[0], st[1], st[2], kBlockRows) ||
+      !encode_map(&maps.k, k, B, Skv, Hkv, D, st[3], st[4], st[5],
+                  kKeyRows) ||
+      !encode_map(&maps.v, v, B, Skv, Hkv, D, st[6], st[7], st[8], kKeyRows))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma_kernel<DMAX>;
+  const size_t smem = wgmma_smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
-  using bf16 = __nv_bfloat16;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Hkv, Sq, Skv, D, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
-      causal, q_offset, kv_offset);
+  // The head on x and the query tile on y: blocks are dispatched tile by
+  // tile, the longest causal chains first.
+  dim3 grid(B * H, (Sq + kBlockRows - 1) / kBlockRows);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
+      maps, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Hkv,
+      Sq, Skv, D, st[9], st[10], st[11], scale, causal, q_offset, kv_offset);
   return cudaGetLastError();
 }
 
@@ -461,16 +635,17 @@ cudaError_t launch_for_type(const void* q, const void* k, const void* v,
                             int causal, int q_offset, int kv_offset,
                             cudaStream_t stream) {
   // bf16 with aligned rows and D a multiple of 16 up to 128 (the 8B model's
-  // shape) runs on the tensor cores; everything else on the CUDA cores.
+  // shape) runs on the tensor cores (wgmma); everything else on the CUDA
+  // cores.
   if (std::is_same<T, __nv_bfloat16>::value && D % 16 == 0 && D <= 128 &&
       vector_rows<T>(q, k, v, D, st) &&
       reinterpret_cast<uintptr_t>(o) % 16 == 0 && st[9] % 8 == 0 &&
       st[10] % 8 == 0 && st[11] % 8 == 0) {
     if (D <= 64)
-      return launch_mma<64>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, scale,
-                            causal, q_offset, kv_offset, stream);
-    return launch_mma<128>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st, scale,
-                           causal, q_offset, kv_offset, stream);
+      return launch_wgmma<64>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st,
+                              scale, causal, q_offset, kv_offset, stream);
+    return launch_wgmma<128>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st,
+                             scale, causal, q_offset, kv_offset, stream);
   }
   if (vector_rows<T>(q, k, v, D, st))
     return launch_for_dim<T, true>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, st,

@@ -1,8 +1,9 @@
 // Hopper building blocks of the port's redesigned kernels (sm_90a only):
 // asynchronous tile copies into shared memory laid out for wgmma, wgmma
 // matrix descriptors, and the warpgroup matrix-multiply instructions the
-// flash-attention backward uses. The forward, paged decode and the scalar
-// kernels take their helpers from common.cuh.
+// flash-attention forward and backward use (paged decode takes its
+// cp.async copies from here too). The scalar kernels take their helpers
+// from common.cuh.
 //
 // Shared-memory tiles. A bf16 tile of ROWS rows x DMAX columns (DMAX 64 or
 // 128) is stored as DMAX / 64 panels of ROWS rows x 64 columns, 128 bytes a
@@ -71,6 +72,68 @@ __device__ __forceinline__ void cp_async_wait() {
 // reads (the async proxy); then a barrier hands them to the other threads.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- mbarriers and TMA ---------------------------------------------------
+//
+// An mbarrier (8 bytes of shared memory) completes a phase when its
+// expected arrivals have arrived and the bytes a TMA copy announced
+// (expect_tx) have landed; waiters name the phase by its parity.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// Makes initialised barriers visible to the async proxy (TMA) and the other
+// threads; a barrier of the block follows.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Arrives and announces `bytes` of TMA copies that complete on `bar`.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Waits for the phase of parity `parity` to complete. A wait of more than
+// about two seconds traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (4ll << 30)) __trap();
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3), innermost first, of the
+// tensor map at generic address `map` into shared memory at `dst`,
+// completing on barrier `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
 }
 
 template <int ROWS, int DMAX>

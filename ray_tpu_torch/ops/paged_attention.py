@@ -12,6 +12,11 @@ it runs :func:`paged_decode_reference`, the plain PyTorch version (gather
 the slot's pages, attend densely), which ``chip_smoke.py`` holds the kernel
 against. ``launches`` counts kernel launches and nothing else.
 
+The bf16 kernel splits each slot's page walk across :func:`paged_splits`
+blocks and merges them in the same launch through a float32 workspace and
+one ticket counter per (slot, KV head); the wrapper keeps both across calls
+(:func:`_workspace`), and every launch leaves the counters at 0.
+
 Unlike the TPU kernel this one takes any page size and any head dim up to
 256 (the TPU's ``pageable`` rule was a tiling rule of that chip).
 """
@@ -23,10 +28,47 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash_attention import masked_attention_f32
+from .flash_attention import H100_SMS, _sm_count, masked_attention_f32
 
 # Kernel launches since import (reset by callers that count a run).
 launches = 0
+
+# The split rule's floor on a split's share of the table, in tokens.
+MIN_SPLIT_TOKENS = 32
+
+
+def paged_splits(B: int, Hkv: int, Pmax: int, page: int,
+                 sms: int = H100_SMS) -> int:
+    """Blocks each (slot, KV head) page walk is split across in the bf16
+    kernel: enough for two blocks an SM over the B x Hkv walks, but no more
+    than one per ``MIN_SPLIT_TOKENS`` tokens the table can name (Pmax *
+    page), so the merge stays small against the walk. Fixed from the shapes
+    alone: the lengths live on the card and the host does not read them.
+    Each block takes its share of its slot's actual pages, whatever the
+    slot's length."""
+    want = -(-2 * sms // (B * Hkv))
+    most = -(-Pmax * page // MIN_SPLIT_TOKENS)
+    return max(1, min(want, most))
+
+
+# (device, stream) -> (float32 workspace, int32 counters): kept across
+# launches, grown when a launch needs more. The counters start at zero and
+# every launch leaves them at zero.
+_workspaces = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int, pairs: int):
+    """The split kernel's workspace (at least ``floats`` float32) and its
+    ticket counters (at least ``pairs`` int32, zero) for launches on
+    ``stream`` of ``device``."""
+    key = (device, stream)
+    ws, counters = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < pairs:
+        counters = torch.zeros(pairs, dtype=torch.int32, device=device)
+    _workspaces[key] = (ws, counters)
+    return ws, counters
 
 
 def paged_decode_reference(
@@ -88,12 +130,17 @@ def launch(lib, q, k_pool, v_pool, page_table, lengths, *, scale, stream):
     allocated here."""
     B, H, D = q.shape
     Hkv, P, page, _ = k_pool.shape
+    Pmax = page_table.shape[1]
+    splits = paged_splits(B, Hkv, Pmax, page, _sm_count(q.device))
+    ws, counters = _workspace(q.device, stream,
+                              B * Hkv * splits * (H // Hkv) * (D + 2),
+                              B * Hkv)
     out = torch.empty_like(q)
     code = lib.rtt_paged_decode(
         _build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, P, page, page_table.shape[1], D,
-        float(scale), stream)
+        out.data_ptr(), B, H, Hkv, P, page, Pmax, D, float(scale), stream,
+        splits, ws.data_ptr(), counters.data_ptr())
     _build.check(lib, code, "paged_decode")
     return out
 

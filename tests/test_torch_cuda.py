@@ -50,10 +50,17 @@ def _randn(rng, shape, dtype, device, misalign=False):
 
 # (B, Sq, Skv, H, Hkv, D, causal, q_offset, kv_offset, misalign q). The
 # bf16 backward's wgmma kernels tile 128 rows a block and 64 a step through
-# a 3-stage ring: "ragged_rep4" and "offsets_rep4" end in ragged 128-key
+# a 2-stage ring: "ragged_rep4" and "offsets_rep4" end in ragged 128-key
 # and 64-query tiles, "offsets_rep4" has Sq != Skv, both offsets and fully
 # masked query rows, "noncausal_long" chains 20 steps a KV-head block
-# (more than the ring's stages), "masked_tile" masks whole tiles.
+# (more than the ring's stages), "masked_tile" masks whole tiles. The bf16
+# forward's wgmma kernel owns 128 query rows a block and streams 64-key
+# tiles through a 4-stage ring: "s129_rep4" and "ragged_rep4" (S = 300)
+# end in ragged query and key tiles, "diag_mid_tile_rep1" puts the causal
+# diagonal 37 keys into a tile, "kv_longer_rep8" has Skv > Sq with both
+# offsets, "masked_block128" masks a whole 128-row query block beside a
+# live one, "d48_causal" reads zero-filled columns, "long_rep4" walks 16
+# key tiles (four times the ring).
 FLASH = {
     "ragged_gqa": (1, 70, 70, 2, 1, 64, True, 0, 0, False),
     "q_offset": (1, 64, 130, 2, 2, 128, True, 66, 0, False),
@@ -65,6 +72,12 @@ FLASH = {
     "ragged_rep4": (1, 300, 300, 8, 2, 128, True, 0, 0, False),
     "offsets_rep4": (2, 200, 140, 8, 2, 64, True, 10, 70, False),
     "noncausal_long": (1, 260, 260, 4, 1, 128, False, 0, 0, False),
+    "s129_rep4": (1, 129, 129, 4, 1, 128, True, 0, 0, False),
+    "diag_mid_tile_rep1": (1, 192, 229, 4, 4, 128, True, 37, 0, False),
+    "kv_longer_rep8": (2, 100, 260, 8, 1, 64, True, 200, 30, False),
+    "masked_block128": (1, 256, 256, 4, 2, 128, True, 0, 128, False),
+    "d48_causal": (2, 150, 150, 4, 2, 48, True, 0, 0, False),
+    "long_rep4": (1, 1024, 1024, 8, 2, 128, True, 0, 0, False),
 }
 
 
@@ -87,35 +100,55 @@ def test_flash_kernel_matches_plain_version(cuda, case, dtype):
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    # Query rows before every key ("masked_tile": a 64-row tile,
+    # "masked_block128": a whole 128-row block) are exactly 0.
+    masked = max(0, min(Sq, ko - qo)) if causal else 0
+    assert (out[:, :masked] == 0).all()
     if case == "masked_tile":
-        assert (out[:, :64] == 0).all()
+        assert masked == 64
 
 
-# (B, H, Hkv, D, P, page, Pmax, misalign pools)
+# (B, H, Hkv, D, P, page, Pmax, misalign pools, lengths or None: the
+# first slot full, the rest drawn). The bf16 kernel splits each slot's page
+# walk over pa.paged_splits blocks: "splits_b8" (5 splits) and "rep8" (20)
+# have slots that span every split, lengths on page ends and starts and 0;
+# "engine_b4" is the 8B engine's decode (9 splits), "rep1" the same with
+# one query head a KV head; "d256" takes the widest rows.
 PAGED = {
-    "page16_d128": (3, 4, 2, 128, 8, 16, 4, False),
-    "page5_d40": (2, 8, 2, 40, 9, 5, 6, False),
-    "page64_mqa": (3, 4, 1, 64, 12, 64, 3, False),
-    "odd_d": (3, 4, 2, 20, 10, 8, 4, False),
-    "misaligned": (3, 4, 2, 64, 10, 8, 4, True),
+    "page16_d128": (3, 4, 2, 128, 8, 16, 4, False, None),
+    "page5_d40": (2, 8, 2, 40, 9, 5, 6, False, None),
+    "page64_mqa": (3, 4, 1, 64, 12, 64, 3, False, None),
+    "odd_d": (3, 4, 2, 20, 10, 8, 4, False, None),
+    "misaligned": (3, 4, 2, 64, 10, 8, 4, True, None),
+    "splits_b8": (8, 32, 8, 128, 256, 16, 32, False,
+                  [511, 0, 15, 16, 95, 96, 255, 256]),
+    "rep8": (3, 16, 2, 64, 130, 16, 40, False, [639, 0, 320]),
+    "engine_b4": (4, 32, 8, 128, 128, 16, 32, False, [300, 200, 130, 100]),
+    "rep1": (4, 8, 8, 128, 128, 16, 32, False, [300, 200, 130, 100]),
+    "d256": (2, 8, 2, 256, 20, 8, 10, False, None),
 }
+
+
+def _paged_inputs(case, dtype, device):
+    B, H, Hkv, D, P, page, Pmax, mis, lengths = PAGED[case]
+    rng = np.random.RandomState(len(case))
+    q = _randn(rng, (B, H, D), dtype, device)
+    k_pool = _randn(rng, (Hkv, P, page, D), dtype, device, misalign=mis)
+    v_pool = _randn(rng, (Hkv, P, page, D), dtype, device)
+    table = np.stack([rng.permutation(P)[:Pmax] for _ in range(B)])
+    table[-1] = 0  # an inactive slot: an all-zero row
+    table = torch.tensor(table, dtype=torch.int32, device=device)
+    if lengths is None:
+        lengths = [Pmax * page - 1] + list(rng.randint(0, Pmax * page, B - 1))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, k_pool, v_pool, table, lengths
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(PAGED))
 def test_paged_kernel_matches_plain_version(cuda, case, dtype):
-    B, H, Hkv, D, P, page, Pmax, mis = PAGED[case]
-    rng = np.random.RandomState(len(case))
-    q = _randn(rng, (B, H, D), dtype, cuda)
-    k_pool = _randn(rng, (Hkv, P, page, D), dtype, cuda, misalign=mis)
-    v_pool = _randn(rng, (Hkv, P, page, D), dtype, cuda)
-    table = np.stack([rng.permutation(P)[:Pmax] for _ in range(B)])
-    table[-1] = 0  # an inactive slot: an all-zero row
-    table = torch.tensor(table, dtype=torch.int32, device=cuda)
-    lengths = torch.tensor(
-        [Pmax * page - 1] + list(rng.randint(0, Pmax * page, B - 1)),
-        dtype=torch.int32, device=cuda)
+    q, k_pool, v_pool, table, lengths = _paged_inputs(case, dtype, cuda)
     before = pa.launches
     out = pa.paged_decode_attention(q, k_pool, v_pool, table, lengths)
     ref = pa.paged_decode_reference(q, k_pool, v_pool, table, lengths)
@@ -123,6 +156,29 @@ def test_paged_kernel_matches_plain_version(cuda, case, dtype):
     assert pa.launches == before + 1
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_paged_kernel_is_deterministic_and_resets_its_counters(cuda):
+    """The bf16 kernel merges its splits in split order whatever block
+    arrives last: two launches on the same inputs give bitwise equal
+    outputs. Each launch leaves its ticket counters at 0, so a launch at
+    another B (other counters, another split count) and the first shape
+    again are still right."""
+    big = _paged_inputs("splits_b8", torch.bfloat16, cuda)
+    small = _paged_inputs("engine_b4", torch.bfloat16, cuda)
+    assert pa.paged_splits(8, 8, 32, 16) != pa.paged_splits(4, 8, 32, 16)
+    first = pa.paged_decode_attention(*big)
+    second = pa.paged_decode_attention(*big)
+    other = pa.paged_decode_attention(*small)
+    third = pa.paged_decode_attention(*big)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, third)
+    for got, inputs in ((first, big), (other, small)):
+        ref = pa.paged_decode_reference(*inputs)
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    for _ws, counters in pa._workspaces.values():
+        assert not counters.any()
 
 
 @pytest.mark.parametrize("per_head", [False, True], ids=["grouped",

@@ -142,6 +142,22 @@ def test_paged_reference_clamps_out_of_pool_page_ids():
     assert torch.equal(got, want)
 
 
+def test_paged_split_rule():
+    """The bf16 kernel's split count: two blocks an SM over the B x Hkv
+    walks, at most one split per 32 tokens the table can name, at least
+    one. The 8B engine's decode (B=4, Hkv=8, Pmax 32, page 16) and the
+    B=8 bench on the H100's 132 SMs get two blocks an SM or more."""
+    rule = pa.paged_splits
+    assert rule(4, 8, 32, 16, 132) == 9 and 4 * 8 * 9 >= 2 * 132
+    assert rule(8, 8, 32, 16, 132) == 5 and 8 * 8 * 5 >= 2 * 132
+    assert rule(1, 8, 32, 16, 132) == 16  # capped by 512 tokens / 32
+    assert rule(4, 8, 30, 16, 132) == 9   # Pmax not a multiple of it
+    assert rule(3, 2, 40, 16, 132) == 20
+    assert rule(64, 8, 32, 16, 132) == 1  # 512 walks fill the card
+    assert rule(1, 1, 1, 1, 132) == 1
+    assert rule(4, 8, 32, 16) == rule(4, 8, 32, 16, pa.H100_SMS)
+
+
 MHA_CASES = {
     "plain": dict(causal=False),
     "causal_gqa": dict(causal=True, Hkv=2),
