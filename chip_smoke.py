@@ -28,10 +28,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the CPU (S = 256: the flash forward and backward kernels run): losses,
      step-1 gradients, the card's weights against AdamW replayed on the CPU
      from the card's gradients, and the weights after step 3;
+  4c. phases 4 and 4b on the same model with Mixtral-style MoE layers (8
+     experts, top-2, capacity factor 1.25): both decode slots live, the
+     engine's requests one after the other (an MoE batch's routing depends
+     on who shares it), every layer's dispatch tensor equal card against
+     CPU, and some assignments dropped for want of capacity;
   5. Llama-3-8B at full width and depth, random bf16 weights drawn on the
      card from a seed, served by LLMEngine(max_batch=4, max_len=512,
      page_size=16): six concurrent requests, more than the slots, with
      every launch counter reset just before and read just after;
+  5b. Mixtral-8x7B at full width, cut to 16 of its 32 layers (23.5 B
+     parameters, 47 GB in bf16), served the same way: first one layer's
+     moe_ffn in bf16 against float32 (identical dispatch), and a 128-token
+     forward with the flash kernel against plain attention (routing flips
+     counted layer by layer from the same input), then the six requests and
+     a breakdown of a decode step and a prefill that splits out the expert
+     products and routing;
   7. Llama-3-8B at full width and depth trained by CompiledTrainStep (full
      remat, loss_chunk 512, AdamW, B = 1, S = 2048): loss and gradient
      norms with the flash kernels against plain attention, then 2 warm-up
@@ -39,6 +51,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      step at B = 8, S = 512 (the KV-head dK/dV grid), with every launch
      counter reset just before and read just after, and a profiler
      breakdown of one step;
+  7b. Mixtral-8x7B at full width, cut to 4 layers (6.07 B parameters),
+     trained the same way at B = 1, S = 2048: step-0 loss flash against
+     plain attention, the MoE aux loss, 2 warm-up and 3 measured steps, and
+     a breakdown of one step;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -46,6 +62,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -419,14 +436,55 @@ def phase_backward_kernels():
     return results
 
 
-def small_f32_config():
-    """Phases 4 and 4b's model: 2 layers, head dim 128 (both attention
-    kernels take it), float32."""
+def small_f32_config(n_experts: int = 0):
+    """Phases 4, 4b and 4c's model: 2 layers, head dim 128 (both attention
+    kernels take it), float32; with ``n_experts`` MoE layers (top-2,
+    capacity factor 1.25)."""
     from ray_tpu_torch.models import LlamaConfig
 
     return LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024,
                        num_layers=2, num_heads=4, num_kv_heads=2,
-                       rope_theta=10_000.0, dtype=torch.float32)
+                       rope_theta=10_000.0, dtype=torch.float32,
+                       n_experts=n_experts)
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Yields a list that collects (dispatch, token_mask, k, chosen) of
+    every ``top_k_routing`` call inside the block, on any device and
+    thread (``moe_ffn`` looks the function up in its module at each call);
+    ``chosen`` [T, k] is the router's top-k experts of each token, in
+    index order, before capacity drops any."""
+    from ray_tpu_torch.parallel import moe
+
+    inner = moe.top_k_routing
+    calls = []
+
+    def record(logits, k, capacity, token_mask=None):
+        out = inner(logits, k, capacity, token_mask)
+        top = logits.sort(dim=-1, descending=True, stable=True).indices
+        calls.append((out[0], token_mask, k, top[:, :k].sort(-1).values))
+        return out
+
+    moe.top_k_routing = record
+    try:
+        yield calls
+    finally:
+        moe.top_k_routing = inner
+
+
+def dropped(calls) -> int:
+    """Assignments that found their expert full, over recorded calls."""
+    n = 0
+    for dispatch, mask, k, _ in calls:
+        rows = dispatch.shape[0] if mask is None else int(mask.sum())
+        n += k * rows - int(dispatch.sum())
+    return n
+
+
+def kept_experts(dispatch: torch.Tensor) -> torch.Tensor:
+    """[T, E] bool: the experts each token is kept by."""
+    return dispatch.sum(dim=-1) > 0
 
 
 def params_to(params, device):
@@ -447,9 +505,14 @@ def flat_tree(tree):
     return out
 
 
-def phase_parity():
+def phase_parity(cfg=None, tag: str = "parity", active=(False, True),
+                 concurrent: bool = True):
     """Card against CPU, float32 with TF32 off, on a 2-layer model whose
-    head dim (128) both kernels take."""
+    head dim (128) both kernels take (default: phase 4's dense one). Slot 1
+    holds a 130-token prompt (bucket 256: the flash route) and, where
+    ``active[0]``, slot 0 a 20-token one (bucket 32: the plain route); the
+    ``active`` slots then decode 8 steps. ``concurrent`` submits the
+    engine's two requests at once, else one after the other."""
     from ray_tpu_torch.models import init_params
     from ray_tpu_torch.models.generation import (
         PagedKVCache, paged_decode, paged_prefill)
@@ -457,18 +520,20 @@ def phase_parity():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = small_f32_config()
+    cfg = cfg or small_f32_config()
     p_cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     p_gpu = params_to(p_cpu, "cuda")
     rng = np.random.RandomState(1)
     tol = 1e-3
 
-    # Logits: a 130-token prompt (bucket 256: the flash route), then 8
-    # decode steps (the paged kernel) fed the same greedy tokens.
+    # Logits: the prefills, then 8 decode steps (the paged kernel) fed the
+    # same greedy tokens.
     prompt = rng.randint(0, cfg.vocab_size, 130).tolist()
-    bucket, page, Pmax = 256, 16, 32
+    prompts = {1: (prompt, 256), 0: (prompt[:20], 32)}
+    page, Pmax = 16, 32
+    live = torch.tensor(active)
     worst = 0.0
-    caches, logits = {}, {}
+    caches, logits, last = {}, {}, [0, 0]
     with torch.inference_mode():
         for name, params, dev in (("cpu", p_cpu, "cpu"),
                                   ("cuda", p_gpu, "cuda")):
@@ -476,51 +541,60 @@ def phase_parity():
             table = torch.arange(2 * Pmax, dtype=torch.int32).reshape(2, Pmax)
             cache = cache._replace(
                 page_table=table.flip(1).contiguous().to(dev))
-            toks = torch.tensor([prompt + [0] * (bucket - len(prompt))],
-                                dtype=torch.int32, device=dev)
-            pages = cache.page_table[1, : bucket // page].long()
-            logits[name], caches[name] = paged_prefill(
-                params, toks, len(prompt), cache, cfg, 1, pages)
-        worst = max(worst, (logits["cuda"].cpu() - logits["cpu"]).abs().max()
-                    .item())
-        tok = int(logits["cpu"][0].argmax())
-        active = torch.tensor([False, True])
+            for slot in (1, 0) if active[0] else (1,):
+                p, bucket = prompts[slot]
+                toks = torch.tensor([p + [0] * (bucket - len(p))],
+                                    dtype=torch.int32, device=dev)
+                pages = cache.page_table[slot, : bucket // page].long()
+                logits[name, slot], cache = paged_prefill(
+                    params, toks, len(p), cache, cfg, slot, pages)
+            caches[name] = cache
+        for slot in (1, 0) if active[0] else (1,):
+            worst = max(worst, (logits["cuda", slot].cpu()
+                                - logits["cpu", slot]).abs().max().item())
+            last[slot] = int(logits["cpu", slot][0].argmax())
         for _ in range(8):
             for name, params, dev in (("cpu", p_cpu, "cpu"),
                                       ("cuda", p_gpu, "cuda")):
-                last = torch.tensor([0, tok], dtype=torch.int32, device=dev)
+                toks = torch.tensor(last, dtype=torch.int32, device=dev)
                 logits[name], caches[name] = paged_decode(
-                    params, last, caches[name], cfg, active=active.to(dev))
-            worst = max(worst, (logits["cuda"][1].cpu()
-                                - logits["cpu"][1]).abs().max().item())
-            tok = int(logits["cpu"][1].argmax())
-    log(f"[parity] float32, TF32 off: prefill + 8 decode logits, cuda vs "
-        f"cpu: max|d|={worst:.3e} (tol {tol})")
+                    params, toks, caches[name], cfg, active=live.to(dev))
+            worst = max(worst, (logits["cuda"].cpu()[live]
+                                - logits["cpu"][live]).abs().max().item())
+            last = [int(t) if a else 0
+                    for t, a in zip(logits["cpu"].argmax(-1), active)]
+    log(f"[{tag}] float32, TF32 off: prefill + 8 decode logits (slots "
+        f"{[i for i, a in enumerate(active) if a]} live), cuda vs cpu: "
+        f"max|d|={worst:.3e} (tol {tol})")
     assert worst <= tol, worst
 
     # Greedy tokens through the engines: 130 (flash) and 20 (plain) tokens.
     outs = {}
     for name, params, dev in (("cpu", p_cpu, "cpu"), ("cuda", p_gpu, "cuda")):
         eng = LLMEngine(cfg, params, max_batch=2, max_len=512, device=dev)
-        reqs = [eng.submit(p, 8) for p in (prompt, prompt[:20])]
-        outs[name] = [r.result(timeout=300) for r in reqs]
+        if concurrent:
+            reqs = [eng.submit(p, 8) for p in (prompt, prompt[:20])]
+            outs[name] = [r.result(timeout=300) for r in reqs]
+        else:
+            outs[name] = [eng.generate(p, 8, timeout=300)
+                          for p in (prompt, prompt[:20])]
         eng.shutdown()
-    log(f"[parity] engine greedy tokens cuda={outs['cuda']} "
+    log(f"[{tag}] engine greedy tokens cuda={outs['cuda']} "
         f"cpu={outs['cpu']}")
     assert outs["cuda"] == outs["cpu"], outs
 
 
-def phase_train_parity():
+def phase_train_parity(cfg=None, tag: str = "parity"):
     """Three training steps on the card against the CPU, float32 with TF32
-    off, on phase 4's model at S = 256: the flash forward and backward
-    kernels (float32 paths) run on the card, their plain versions on the
-    CPU."""
+    off, on phase 4's model (or ``cfg``) at S = 256: the flash forward and
+    backward kernels (float32 paths) run on the card, their plain versions
+    on the CPU."""
     from ray_tpu_torch.models import init_params
     from ray_tpu_torch.train import AdamW, CompiledTrainStep
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = small_f32_config()
+    cfg = cfg or small_f32_config()
     tokens = torch.tensor(np.random.RandomState(3).randint(0, 256, (1, 257)),
                           dtype=torch.int32)
     p0 = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
@@ -573,13 +647,13 @@ def phase_train_parity():
     tiny = sum(max(abs(a), abs(b)) < 1e-7 for a, b in off_g1)
     flips = sum((a > 0) != (b > 0) for a, b in off_g1)
     dg_max = max((g_card[k] - g_cpu[k]).abs().max().item() for k in g_cpu)
-    log(f"[parity] train, float32, TF32 off, 3 CompiledTrainStep steps at "
+    log(f"[{tag}] train, float32, TF32 off, 3 CompiledTrainStep steps at "
         f"S=256: losses cuda {card['losses']} cpu {cpu['losses']}, "
         f"max|d loss|={d_loss:.3e} (tol 1e-4); step-1 gradients max|d| / "
         f"max|g| of the worst leaf {g_rel:.3e} (tol 2e-5; largest |d| "
         f"{dg_max:.3e}); card weights against AdamW on the CPU fed the "
         f"card's gradients: max|d| {d_replay:.3e} (tol 1e-6)")
-    log(f"[parity] train weights after step 3, card vs CPU: largest share of "
+    log(f"[{tag}] train weights after step 3, card vs CPU: largest share of "
         f"a leaf off by > 2e-5 {off_share:.2e} (tol 1e-3), max|d| "
         f"{d_max:.3e}; of the {len(off_g1)} elements off, {tiny} had a "
         f"step-1 gradient below 1e-7 on both devices, {flips} a step-1 "
@@ -591,13 +665,37 @@ def phase_train_parity():
     assert off_share <= 1e-3, off_share
 
 
+def phase_moe_parity():
+    """Phases 4 and 4b on the same model with MoE layers (8 experts, top-2,
+    capacity factor 1.25), with both decode slots live and the engine's
+    requests one after the other, so each device routes the same batches.
+    Routing is discrete: every layer's dispatch tensor must be equal on
+    the card and the CPU, and some assignments must have been dropped."""
+    cfg = small_f32_config(n_experts=8)
+    with recorded_routing() as calls:
+        phase_parity(cfg, "parity-moe", active=(True, True), concurrent=False)
+        phase_train_parity(cfg, "parity-moe")
+    on = {d: [c for c in calls if c[0].device.type == d]
+          for d in ("cpu", "cuda")}
+    assert len(on["cpu"]) == len(on["cuda"]) > 0, {
+        d: len(c) for d, c in on.items()}
+    differ = sum(not torch.equal(a[0], b[0].cpu())
+                 for a, b in zip(on["cpu"], on["cuda"]))
+    n_drop = [dropped(on[d]) for d in ("cpu", "cuda")]
+    n_asg = sum(k * (d.shape[0] if m is None else int(m.sum()))
+                for d, m, k, _ in on["cpu"])
+    log(f"[parity-moe] routing: {len(on['cpu'])} top_k_routing calls per "
+        f"device (prefill, decode, engine, train forward and its recompute);"
+        f" dispatch tensors that differ card vs CPU: {differ} (tol 0); "
+        f"assignments dropped for want of capacity: cpu {n_drop[0]}, cuda "
+        f"{n_drop[1]} of {n_asg}")
+    assert differ == 0 and n_drop[0] == n_drop[1] > 0, (differ, n_drop)
+
+
 def phase_slice(card: str):
     """Llama-3-8B at full width served by the engine."""
     from ray_tpu_torch.models import LlamaConfig, forward, init_params
     from ray_tpu_torch.models import num_params
-    from ray_tpu_torch.ops import flash_attention as fa
-    from ray_tpu_torch.ops import paged_attention as pa
-    from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -624,6 +722,21 @@ def phase_slice(card: str):
         f"layers): max|d|={d:.3e} (tol {tol}); |logits| max "
         f"{lp.abs().max().item():.2f}")
     assert torch.isfinite(lf).all() and d <= tol, d
+
+    launches = serve_six(cfg, params, card, "slice", rng)
+    phase_breakdown(cfg, params, card)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_six(cfg, params, card: str, tag: str, rng) -> dict:
+    """Phase 5's run: LLMEngine(max_batch=4, max_len=512, page_size=16)
+    serving six concurrent requests, more than the slots, with the serving
+    kernels' launch counters reset just before and read just after."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve.llm import LLMEngine
 
     eng = LLMEngine(cfg, params, max_batch=4, max_len=512, page_size=16,
                     device="cuda")
@@ -673,16 +786,116 @@ def phase_slice(card: str):
     t_dec1 = max(ts[-2] for ts in times)
     tps = decode_tokens / (t_dec1 - t_dec0)
     ttft = [r.ttft_s * 1e3 for r in reqs]
-    log(f"[slice] 6 requests (prompts {lens}, new {new}) done in {wall:.2f} "
+    L = cfg.num_layers
+    log(f"[{tag}] 6 requests (prompts {lens}, new {new}) done in {wall:.2f} "
         f"s on {card}: {steps} decode steps, {decode_tokens} decode tokens, "
         f"{tps:.1f} decode tok/s, {(t_dec1 - t_dec0) / steps * 1e3:.2f} "
         f"ms/step")
-    log(f"[slice] TTFT ms per request (incl. queueing): "
+    log(f"[{tag}] TTFT ms per request (incl. queueing): "
         f"{[round(t, 1) for t in ttft]}; first-token order ok, pages all "
         f"free ({stats['free_pages']}/{stats['total_pages']})")
-    log(f"[slice] launches on the main path: {launches} (32 layers: "
-        f"flash {launches['flash_fwd'] / 32:.0f} prefills with bucket >= 128,"
-        f" paged {launches['paged_decode'] / 32:.0f} decode steps)")
+    log(f"[{tag}] launches on the main path: {launches} ({L} layers: "
+        f"flash {launches['flash_fwd'] / L:.0f} prefills with bucket >= 128,"
+        f" paged {launches['paged_decode'] / L:.0f} decode steps)")
+    return launches
+
+
+def phase_slice_moe(card: str):
+    """Mixtral-8x7B at full width, 16 layers, served by the engine."""
+    from ray_tpu_torch.models import LlamaConfig, forward, init_params
+    from ray_tpu_torch.models import num_params
+    from ray_tpu_torch.models.llama import _layer, embed, layer_params
+    from ray_tpu_torch.parallel.moe import moe_ffn
+
+    cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=16)
+    L, T = cfg.num_layers, 128
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    log(f"[slice-moe] mixtral_8x7b cut to {L} of 32 layers: "
+        f"{num_params(params) / 1e9:.3f} B params, {cfg.n_experts} experts, "
+        f"top-{cfg.top_k}, capacity factor {cfg.capacity_factor}, bf16 "
+        f"(router float32), drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    # One full-width layer: moe_ffn in bf16 against float32 from the same
+    # bf16 input. The router product is float32 in both, so the dispatch
+    # must be identical. Tolerance, set before the first run from the
+    # same comparison at 1/4 and 1/2 width on the CPU (max|d| 0.5-0.7% of
+    # max|ref|, relative RMS 0.46%): max|d| <= 2e-2 max|ref| and relative
+    # RMS <= 1e-2.
+    lp = layer_params(params, 0)
+    x = torch.randn(1, T, cfg.hidden_size,
+                    generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda").to(cfg.dtype)
+    kw = dict(k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    with torch.inference_mode(), recorded_routing() as calls:
+        out16, aux16 = moe_ffn(x, lp["router"], lp["w_up"], lp["w_down"],
+                               w_gate=lp["w_gate"], **kw)
+        out32, aux32 = moe_ffn(x.float(), lp["router"], lp["w_up"].float(),
+                               lp["w_down"].float(),
+                               w_gate=lp["w_gate"].float(), **kw)
+    d = (out16.float() - out32).abs()
+    ref = out32.abs().max().item()
+    rms = (d.pow(2).mean().sqrt() / out32.pow(2).mean().sqrt()).item()
+    same = torch.equal(calls[0][0], calls[1][0])
+    log(f"[slice-moe] one layer's moe_ffn, bf16 vs float32 on the card "
+        f"(T={T}): dispatch identical {same}, {dropped(calls[:1])} of "
+        f"{cfg.top_k * T} assignments dropped; max|d|={d.max().item():.3e} "
+        f"(tol 2e-2 x max|ref| {ref:.3f}), relative RMS {rms:.3e} (tol "
+        f"1e-2); aux {aux16.item():.6f} / {aux32.item():.6f}")
+    assert same and d.max().item() <= 2e-2 * ref and rms <= 1e-2, (
+        same, d.max().item(), ref, rms)
+    del lp, x, out16, out32, calls, d
+    torch.cuda.empty_cache()
+
+    # The flash route inside the model, flash kernel against plain
+    # attention on a 128-token prompt. A routing decision (the router's
+    # top-k experts of a token) can flip on a rounding difference; a flip
+    # moves that token's output by O(1), changes later layers' inputs, and
+    # shifts the queue positions, hence the drops, of other tokens. So the
+    # flips are counted layer by layer from the same input (the flash
+    # run's): at most 1% of the decisions may differ. Then two whole
+    # forwards: logits are held to phase 5's 0.25 at the tokens none of
+    # whose decisions (the experts that keep it) differ in any layer.
+    plain = dataclasses.replace(cfg, use_flash=False)
+    rng = np.random.RandomState(0)
+    toks = torch.tensor(rng.randint(0, cfg.vocab_size, (1, T)),
+                        dtype=torch.int32, device="cuda")
+    positions = torch.arange(T, device="cuda")
+    with torch.inference_mode(), recorded_routing() as calls:
+        x = embed(params, toks, cfg)
+        for i in range(L):
+            _layer(plain, positions, x, layer_params(params, i))
+            x, _ = _layer(cfg, positions, x, layer_params(params, i))
+    flips = [int((a[3] != b[3]).any(-1).sum())
+             for a, b in zip(calls[0::2], calls[1::2])]
+    with torch.inference_mode(), recorded_routing() as calls:
+        lf, aux_f = forward(params, toks, cfg)
+        lpl, _ = forward(params, toks, plain)
+    assert len(calls) == 2 * L, len(calls)
+    differ = torch.stack([(kept_experts(a[0]) != kept_experts(b[0])).any(-1)
+                          for a, b in zip(calls[:L], calls[L:])])  # [L, T]
+    clean = ~differ.any(0)
+    d = (lf[0, clean] - lpl[0, clean]).abs().max().item()
+    tol = 0.25
+    log(f"[slice-moe] routing, flash vs plain attention (bf16, {L} layers, "
+        f"{T} tokens), each layer from the same input: tokens whose top-"
+        f"{cfg.top_k} experts differ, per layer {flips}: {sum(flips)} of "
+        f"{L * T} decisions (tol 1%)")
+    log(f"[slice-moe] whole forwards, flash vs plain: tokens kept by other "
+        f"experts, per layer {differ.sum(1).tolist()}; logits at the "
+        f"{int(clean.sum())} tokens with no differing decision: max|d|="
+        f"{d:.3e} (tol {tol}); |logits| max {lpl.abs().max().item():.2f}; "
+        f"aux {aux_f.item():.4f}; dropped {dropped(calls[:L])} of "
+        f"{cfg.top_k * T * L} assignments")
+    assert torch.isfinite(lf).all() and sum(flips) <= 0.01 * L * T, flips
+    assert clean.any() and d <= tol, (int(clean.sum()), d)
+    del x, lf, lpl, calls, differ
+
+    launches = serve_six(cfg, params, card, "slice-moe", rng)
     phase_breakdown(cfg, params, card)
     del params
     torch.cuda.empty_cache()
@@ -712,13 +925,17 @@ def train_launches(reset: bool = False):
     return {k: getattr(fa, attr) for k, attr in TRAIN_COUNTERS.items()}
 
 
-def phase_train(card: str):
-    """Llama-3-8B at full width and depth trained on the card."""
+def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
+                measured: int = 5, short_step: bool = True):
+    """Llama-3-8B at full width and depth (or ``cfg``) trained on the card:
+    2 warm-up and ``measured`` steps at B = 1, S = 2048, then, with
+    ``short_step``, one at B = 8, S = 512."""
     from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.models.llama import hidden_forward
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.train import CompiledTrainStep
 
-    cfg = LlamaConfig.llama3_8b()  # remat "full", loss_chunk 512
+    cfg = cfg or LlamaConfig.llama3_8b()  # remat "full", loss_chunk 512
     assert cfg.remat_policy == "full" and cfg.loss_chunk == 512
     B, S = 1, 2048
     torch.cuda.empty_cache()
@@ -730,18 +947,25 @@ def phase_train(card: str):
     torch.cuda.synchronize()
     P = step.num_params(params)
     gb = 1e9
-    log(f"[train] llama3_8b: {P / 1e9:.3f} B params, {cfg.num_layers} "
+    log(f"[{tag}] {name}: {P / 1e9:.3f} B params, {cfg.num_layers} "
         f"layers, bf16, AdamW(1e-3); params, grads and moments allocated in "
         f"{time.perf_counter() - t0:.1f} s: "
         f"{torch.cuda.memory_allocated() / gb:.2f} GB on the card")
     saved = cfg.num_layers * B * S * cfg.hidden_size * 2
-    log(f"[train] memory reckoning: bf16 params {2 * P / gb:.1f} GB + grads "
+    log(f"[{tag}] memory reckoning: bf16 params {2 * P / gb:.1f} GB + grads "
         f"{2 * P / gb:.1f} GB + bf16 m and v {4 * P / gb:.1f} GB = "
         f"{8 * P / gb:.1f} GB persistent, + {saved / gb:.2f} GB of saved "
         f"layer inputs ({cfg.num_layers} x [{B}, {S}, {cfg.hidden_size}] "
         f"bf16) + under 2 GB for one layer's recompute: under 80 GB")
     tokens = torch.tensor(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (B, S + 1)), dtype=torch.int32, device="cuda")
+    if cfg.n_experts:
+        with torch.inference_mode():
+            aux = hidden_forward(params, tokens[:, :-1], cfg)[1].item()
+        log(f"[{tag}] MoE load-balancing aux loss at step 0 (summed over "
+            f"{cfg.num_layers} layers, 1.0 a layer when balanced): "
+            f"{aux:.5f}; the loss adds {step.aux_weight} x it")
+        assert np.isfinite(aux) and aux > 0, aux
 
     # Full-width check at step 0: flash kernels against plain attention,
     # one after the other through the step's one gradient buffer. bf16
@@ -758,7 +982,7 @@ def phase_train(card: str):
     rel = {k: abs(norms_f[k] - norms_p[k]) / max(norms_p[k], 1e-12)
            for k in norms_p}
     worst = max(rel, key=rel.get)
-    log(f"[train] step-0 loss flash {loss_f:.5f} vs plain attention "
+    log(f"[{tag}] step-0 loss flash {loss_f:.5f} vs plain attention "
         f"{loss_p:.5f}: |d|={abs(loss_f - loss_p):.3e} (tol 1e-2); gradient "
         f"norms of {len(rel)} leaves, worst relative difference "
         f"{rel[worst]:.3e} at {worst} (tol 5e-2); norms flash "
@@ -775,7 +999,7 @@ def phase_train(card: str):
     train_launches(reset=True)
     torch.cuda.reset_peak_memory_stats()
     losses, times, per_step = [], [], []
-    for i in range(7):
+    for i in range(2 + measured):
         before = train_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -786,21 +1010,26 @@ def phase_train(card: str):
         per_step.append({k: v - before[k]
                          for k, v in train_launches().items()})
         assert np.isfinite(loss), (i, loss)
-    # B = 8, S = 512: the shape where the grid rule takes the KV-head grid.
-    short = torch.tensor(np.random.RandomState(1).randint(
-        0, cfg.vocab_size, (8, 513)), dtype=torch.int32, device="cuda")
-    before = train_launches()
-    _, _, loss_short = step(params, opt_state, short)
-    short_launches = {k: v - before[k] for k, v in train_launches().items()}
-    assert np.isfinite(loss_short.item())
+    if short_step:
+        # B = 8, S = 512: the shape where the grid rule takes the KV-head
+        # grid.
+        short = torch.tensor(np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (8, 513)), dtype=torch.int32, device="cuda")
+        before = train_launches()
+        _, _, loss_short = step(params, opt_state, short)
+        short_launches = {k: v - before[k]
+                          for k, v in train_launches().items()}
+        assert np.isfinite(loss_short.item())
     launches = train_launches()
     peak = torch.cuda.max_memory_allocated()
     ms = float(np.median(times[2:])) * 1e3
     tps = B * S / (ms / 1e3)
-    flops_per_token = 6 * P + 12 * cfg.num_layers * S * (
-        cfg.num_heads * cfg.dh)
-    mfu = tps * flops_per_token / BF16_FLOPS_PER_S
     L = cfg.num_layers
+    # MoE: the parameters a token passes through (top_k of the experts).
+    P_active = P - L * (cfg.n_experts - cfg.top_k) * 3 * (
+        cfg.hidden_size * cfg.intermediate_size) if cfg.n_experts else P
+    flops_per_token = 6 * P_active + 12 * L * S * (cfg.num_heads * cfg.dh)
+    mfu = tps * flops_per_token / BF16_FLOPS_PER_S
 
     def want_for(b, s):  # launches of one step: the grid rule's dK/dV grid
         per_head = fa.dkv_per_head(
@@ -812,27 +1041,43 @@ def phase_train(card: str):
                 "flash_bwd_dkv_per_head": L if per_head else 0}
 
     want = want_for(B, S)
-    want_short = want_for(short.shape[0], short.shape[1] - 1)
-    log(f"[train] losses over 2 warm-up + 5 measured steps (same batch): "
-        f"{[round(x, 4) for x in losses]}; B=8 S=512 step loss "
-        f"{loss_short.item():.4f}")
-    log(f"[train] B=1 S=2048 on {card}: {ms:.1f} ms/step (median of 5, "
-        f"synchronised; all {[round(t * 1e3, 1) for t in times]}), "
-        f"{tps:.0f} tokens/s, MFU {mfu:.4f} (6P + 12 L S H Dh = "
-        f"{flops_per_token / 1e9:.2f} GFLOP/token against 989 TFLOP/s); "
+    short_note = ""
+    if short_step:
+        want_short = want_for(short.shape[0], short.shape[1] - 1)
+        short_note = f"; B=8 S=512 step loss {loss_short.item():.4f}"
+    log(f"[{tag}] losses over 2 warm-up + {measured} measured steps (same "
+        f"batch): {[round(x, 4) for x in losses]}{short_note}")
+    log(f"[{tag}] B=1 S=2048 on {card}: {ms:.1f} ms/step (median of "
+        f"{measured}, synchronised; all {[round(t * 1e3, 1) for t in times]})"
+        f", {tps:.0f} tokens/s, MFU {mfu:.4f} (6P + 12 L S H Dh = "
+        f"{flops_per_token / 1e9:.2f} GFLOP/token against 989 TFLOP/s"
+        + (f"; P the {P_active / 1e9:.3f} B parameters a token passes "
+           f"through, top-{cfg.top_k} of {cfg.n_experts} experts"
+           if cfg.n_experts else "") + "); "
         f"peak {peak / gb:.2f} GB allocated, "
         f"{torch.cuda.max_memory_reserved() / gb:.2f} GB reserved")
-    log(f"[train] launches per S=2048 step: {per_step[-1]} (want {want}); "
-        f"B=8 S=512 step: {short_launches} (want {want_short}); whole run "
-        f"{launches}")
+    log(f"[{tag}] launches per S=2048 step: {per_step[-1]} (want {want})"
+        + (f"; B=8 S=512 step: {short_launches} (want {want_short})"
+           if short_step else "") + f"; whole run {launches}")
     assert all(p == want for p in per_step), per_step
-    assert short_launches == want_short, short_launches
+    if short_step:
+        assert short_launches == want_short, short_launches
     phase_train_breakdown(step, params, opt_state, tokens)
     for ok, what in checks:
         assert ok, what
     del params, opt_state, step
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_train_moe(card: str):
+    """Mixtral-8x7B at full width, cut to 4 layers, trained on the card."""
+    from ray_tpu_torch.models import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=4)
+    return phase_train(card, cfg, "train-moe",
+                       "mixtral_8x7b cut to 4 of 32 layers", measured=3,
+                       short_step=False)
 
 
 def phase_train_breakdown(step, params, opt_state, tokens):
@@ -848,7 +1093,7 @@ def phase_train_breakdown(step, params, opt_state, tokens):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     _report("train step B=1 S=2048", wall, _device_kernels(prof, 1),
-            kinds=TRAIN_KINDS, top=12)
+            kinds=TRAIN_KINDS, top=12, moe=_moe_ranges(prof, 1))
 
 
 def _device_kernels(prof, steps: int):
@@ -864,6 +1109,35 @@ def _device_kernels(prof, steps: int):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def _moe_ranges(prof, steps: int):
+    """Device ms per step inside the MoE layer's profiler ranges, or None
+    without MoE: "expert GEMM" (``moe.experts``: the three expert products
+    and the SiLU) and "routing/dispatch/combine" (``moe.ffn`` less
+    ``moe.experts``), and the kernel launches a step inside each. The CPU
+    side of a range carries the kernels launched inside it; a backward
+    pass runs outside them."""
+    from torch.autograd import DeviceType
+
+    def launches(e):
+        return len(e.kernels) + sum(launches(c) for c in e.cpu_children)
+
+    names = ("moe.ffn", "moe.experts")
+    t = {e.key: e.device_time_total / 1e3 / steps
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CPU and e.key in names}
+    if not t:
+        return None
+    n = {k: sum(launches(e) for e in prof.events()
+                if e.name == k and e.device_type == DeviceType.CPU) / steps
+         for k in names}
+    return {"expert GEMM": t.get("moe.experts", 0.0),
+            "routing/dispatch/combine": t.get("moe.ffn", 0.0)
+            - t.get("moe.experts", 0.0),
+            "launches in expert GEMM": n["moe.experts"],
+            "launches in routing/dispatch/combine": n["moe.ffn"]
+            - n["moe.experts"]}
+
+
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "sm90")
 SERVE_KINDS = (("flash_fwd", ("flash_fwd",)),
                ("paged_decode", ("paged_decode",)), ("gemm", GEMM_NAMES))
@@ -873,7 +1147,7 @@ TRAIN_KINDS = (("flash_fwd", ("flash_fwd",)), ("dq", ("flash_bwd_dq",)),
 
 
 def _report(what: str, wall_ms: float, rows, kinds=SERVE_KINDS,
-            top: int = 6) -> None:
+            top: int = 6, moe=None) -> None:
     busy = sum(r[1] for r in rows)
     groups = {label: 0.0 for label, _ in kinds}
     groups["other"] = 0.0
@@ -887,6 +1161,13 @@ def _report(what: str, wall_ms: float, rows, kinds=SERVE_KINDS,
         f"device ms by kind " + ", ".join(
             f"{k} {v:.3f}" for k, v in groups.items()) +
         f"; {sum(r[2] for r in rows):.0f} kernel launches")
+    if moe:
+        log(f"[breakdown] {what}: MoE device ms by kind (inside the kinds "
+            f"above): " + ", ".join(f"{k} {v:.3f}" for k, v in moe.items()
+                                    if not k.startswith("launches"))
+            + "; kernel launches " + ", ".join(
+                f"{k[12:]} {v:.0f}" for k, v in moe.items()
+                if k.startswith("launches")))
     for name, ms, n in rows[:top]:
         log(f"[breakdown]   {ms:.3f} ms x{n:.0f} {name[:90]}")
 
@@ -921,7 +1202,7 @@ def phase_breakdown(cfg, params, card: str):
         logits, _ = paged_decode(params, toks, cache, c, active=active)
         sample_logits(logits).cpu()
 
-    def prefill():  # one admission at bucket 512: 32 flash launches
+    def prefill():  # one admission at bucket 512: a flash launch a layer
         logits, _ = paged_prefill(params, ptoks, 300, cache, cfg, 0, pages)
         sample_logits(logits).cpu()
 
@@ -946,12 +1227,14 @@ def phase_breakdown(cfg, params, card: str):
         with profile(activities=acts) as prof:
             for _ in range(5):
                 decode(cfg)
-        _report("decode step B=4", kernel_ms, _device_kernels(prof, 5))
+        _report("decode step B=4", kernel_ms, _device_kernels(prof, 5),
+                moe=_moe_ranges(prof, 5))
         prefill_ms = wall_ms(prefill, n=5)
         with profile(activities=acts) as prof:
             for _ in range(3):
                 prefill()
-        _report("prefill bucket 512", prefill_ms, _device_kernels(prof, 3))
+        _report("prefill bucket 512", prefill_ms, _device_kernels(prof, 3),
+                moe=_moe_ranges(prof, 3))
 
 
 def main() -> int:
@@ -971,37 +1254,40 @@ def main() -> int:
     kern.update(phase_backward_kernels())
     phase_parity()
     phase_train_parity()
-    launches = phase_slice(card)
-    train = phase_train(card)
+    phase_moe_parity()
+    serve = {"serve": phase_slice(card), "serve_moe": phase_slice_moe(card)}
+    train = {"train": phase_train(card), "train_moe": phase_train_moe(card)}
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"
     sdpa_bwd = "backward of F.scaled_dot_product_attention (dQ, dK, dV)"
+
+    def launched(name, paths):
+        by_path = {p: n[name] for p, n in paths.items()}
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
-             replaces=fa_src + "40",
-             launches=launches["flash_fwd"] + train["flash_fwd"],
-             launches_by_path={"serve": launches["flash_fwd"],
-                               "train": train["flash_fwd"]},
+             replaces=fa_src + "40", **launched("flash_fwd", {**serve, **train}),
              shape="B=1 S=2048 " + attn, **kern["flash_fwd_S2048"]),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
-             replaces=fa_src + "144", launches=train["flash_bwd_dq"],
+             replaces=fa_src + "144", **launched("flash_bwd_dq", train),
              shape="B=1 S=2048 " + attn, library=sdpa_bwd,
              **kern["flash_bwd_dq_B1_S2048"]),
         dict(name="flash_bwd_dkv", route="cuda", source=src + "flash_bwd.cu",
-             replaces=fa_src + "187", launches=train["flash_bwd_dkv"],
+             replaces=fa_src + "187", **launched("flash_bwd_dkv", train),
              shape="B=8 S=512 KV-head grid " + attn, library=sdpa_bwd,
              **kern["flash_bwd_dkv_B8_S512"]),
         dict(name="flash_bwd_dkv_per_head", route="cuda",
              source=src + "flash_bwd.cu", replaces=fa_src + "344",
-             launches=train["flash_bwd_dkv_per_head"],
+             **launched("flash_bwd_dkv_per_head", train),
              shape="B=1 S=2048 per-query-head grid " + attn,
              library=sdpa_bwd, **kern["flash_bwd_dkv_per_head_B1_S2048"]),
         dict(name="paged_decode", route="cuda",
              source=src + "paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:28",
-             launches=launches["paged_decode"], shape="B=8 H=32 Hkv=8 D=128 "
-             "page=16 Pmax=32 bf16, warm L2", **kern["paged_decode_B8"]),
+             **launched("paged_decode", serve), shape="B=8 H=32 Hkv=8 "
+             "D=128 page=16 Pmax=32 bf16, warm L2", **kern["paged_decode_B8"]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     log(f"[card] {card}")

@@ -17,7 +17,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..train.optim import AdamState
-from .llama import LlamaConfig, Params, _is_norm, param_shapes
+from .llama import LlamaConfig, Params, leaf_dtype, param_shapes
 
 
 def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -34,7 +34,8 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig,
                       device: DeviceLike = None) -> Params:
     """Check every leaf's shape against ``cfg`` and move it to ``device``
-    in the port's dtypes: float32 norms, ``cfg.dtype`` for the rest."""
+    in the port's dtypes (``leaf_dtype``): float32 norms and MoE router,
+    ``cfg.dtype`` for the rest."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
 
@@ -42,8 +43,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig,
         if tuple(value.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(value.shape)}, "
                              f"config wants {tuple(shape)}")
-        dtype = torch.float32 if _is_norm(name) else cfg.dtype
-        return tensor_from_numpy(np.asarray(value), dev).to(dtype)
+        return tensor_from_numpy(np.asarray(value), dev).to(
+            leaf_dtype(cfg, name))
 
     out: Params = {
         k: leaf(k, tree[k], shapes[k]) for k in ("embed", "final_norm",

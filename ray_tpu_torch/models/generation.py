@@ -18,6 +18,11 @@ every decode step goes through the paged kernel when ``cfg.use_flash`` is
 set. The JAX engine keeps its paged kernel behind ``RAY_TPU_PAGED_KERNEL``
 because of a TPU measurement; the port has no such switch, and PERF.md
 records the kernel's and the gather path's times on the H100.
+
+MoE models route each step's tokens as JAX does: rows of inactive slots
+claim no expert capacity (``token_mask`` from ``active``), while a bucketed
+prefill routes its padding too (``active=None``), so a prompt's prefill
+logits depend on its bucket, in the port as in the reference.
 """
 
 from __future__ import annotations
@@ -36,11 +41,10 @@ from .llama import (
     LlamaConfig,
     Params,
     embed,
+    ffn,
     layer_params,
-    mlp,
     project_heads,
     project_out,
-    require_dense,
     rms_norm,
     rope,
 )
@@ -102,9 +106,11 @@ def _write_rows(cache, new, start, rows):
     cache[b, pos] = new.to(cache.dtype)
 
 
-def _layer_cached(cfg, lp, x, cache_k, cache_v, start_pos, q_pos, rows=None):
+def _layer_cached(cfg, lp, x, cache_k, cache_v, start_pos, q_pos, rows=None,
+                  token_mask=None):
     """One block over cached KV, writing the new rows in place. x [B,S,M];
-    start_pos [B] write offset; ``rows`` the active slots (None: all)."""
+    start_pos [B] write offset; ``rows`` the active slots (None: all);
+    ``token_mask`` [B,S] the rows MoE routes (None: all)."""
     S = x.shape[1]
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     q = rope(project_heads(h, lp["wq"]), q_pos, cfg.rope_theta)
@@ -114,7 +120,9 @@ def _layer_cached(cfg, lp, x, cache_k, cache_v, start_pos, q_pos, rows=None):
     _write_rows(cache_v, v, start_pos, rows)
     attn = _attend_cached(q, cache_k, cache_v, q_pos, start_pos + S, cfg)
     x = x + project_out(attn.to(x.dtype), lp["wo"])
-    return x + mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp)
+    out, _aux = ffn(cfg, rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp,
+                    token_mask)
+    return x + out
 
 
 def forward_with_cache(
@@ -133,16 +141,19 @@ def forward_with_cache(
 
     ``last_index``/``append_len`` serve bucketed prefill: tokens padded to
     a bucket still give logits at the true last position and advance the
-    length by the true prompt length (rows past it are never attended)."""
-    require_dense(cfg)
+    length by the true prompt length (rows past it are never attended).
+    MoE routes every row of an active slot, padding included."""
     B, S = tokens.shape
     start = cache.lengths
     q_pos = start.long()[:, None] + torch.arange(S, device=tokens.device)
     x = embed(params, tokens, cfg)
-    rows = None if active is None else active.nonzero().squeeze(1)
+    rows, mask = None, None
+    if active is not None:
+        rows = active.nonzero().squeeze(1)
+        mask = active[:, None].expand(B, S)
     for i in range(cfg.num_layers):
         x = _layer_cached(cfg, layer_params(params, i), x, cache.k[i],
-                          cache.v[i], start, q_pos, rows)
+                          cache.v[i], start, q_pos, rows, mask)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if last_index is None:
         last = x[:, -1]
@@ -207,11 +218,12 @@ def _attend_paged(q, ck, cv, page_table, lengths, cfg):
 
 
 def _layer_paged_decode(cfg, lp, x, ck, cv, page_table, lengths, page_ids,
-                        offsets, rows):
+                        offsets, rows, active):
     """One block, single-token decode against one layer's pool. x [B,1,M];
     ck/cv [Hkv, P, page, Dh] (views into the pool, written in place);
     page_ids/offsets [B] name each slot's write cell for this token; only
-    the slots in ``rows`` write."""
+    the slots in ``rows`` write, and only the ``active`` [B] rows claim MoE
+    capacity."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     q_pos = lengths.long()[:, None]
     q = rope(project_heads(h, lp["wq"]), q_pos, cfg.rope_theta)
@@ -222,7 +234,9 @@ def _layer_paged_decode(cfg, lp, x, ck, cv, page_table, lengths, page_ids,
     cv[:, cell[0], cell[1]] = v[rows, 0].transpose(0, 1).to(cv.dtype)
     attn = _attend_paged(q, ck, cv, page_table, lengths, cfg)
     x = x + project_out(attn.to(x.dtype), lp["wo"])
-    return x + mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp)
+    out, _aux = ffn(cfg, rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp,
+                    active[:, None])
+    return x + out
 
 
 def paged_decode(
@@ -236,7 +250,6 @@ def paged_decode(
     """One decode step over the paged pool: write each active slot's token
     into its current page cell, attend over its pages, and return
     (logits [B, V] float32, the cache with new lengths)."""
-    require_dense(cfg)
     B = tokens.shape[0]
     page = cache.page_size
     col = index_like_jax(cache.lengths.long() // page,
@@ -249,7 +262,7 @@ def paged_decode(
     for i in range(cfg.num_layers):
         x = _layer_paged_decode(cfg, layer_params(params, i), x, cache.k[i],
                                 cache.v[i], cache.page_table, cache.lengths,
-                                page_ids, offsets, rows)
+                                page_ids, offsets, rows, active)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
     lengths = torch.where(active, cache.lengths + 1, cache.lengths)

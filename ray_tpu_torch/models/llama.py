@@ -1,4 +1,4 @@
-"""Llama-family transformer in PyTorch (dense path).
+"""Llama-family transformer in PyTorch, dense or Mixtral-style MoE.
 
 Counterpart of ``ray_tpu/models/llama.py``: the same config fields and
 presets, and parameters as a dict with the same keys, shapes and layout as
@@ -13,9 +13,10 @@ JAX ``lax.scan``) over per-layer weights. Training (JAX ``:272-434``):
 ``remat_policy`` and ``scan_chunk`` through ``torch.utils.checkpoint``, the
 chunked cross-entropy and ``causal_lm_loss``; :func:`trainable_leaves`
 gives the backward per-layer leaves whose gradients land in one stacked
-buffer. Sharding constraints come with the ``parallel/`` slice; MoE
-(``n_experts > 0``) and sequence parallelism too, and raise
-``NotImplementedError`` until then.
+buffer. With ``n_experts > 0`` each block's feed-forward is the MoE layer
+(``parallel/moe.py``, JAX ``:238-245``) and its aux loss is summed over the
+layers. Sharding constraints and sequence parallelism come with the
+``parallel/`` slice.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from torch.utils.checkpoint import (
 from .._device import DeviceLike, index_like_jax, resolve_device
 from ..ops.attention import mha_attention
 from ..ops.flash_attention import flash_attention
+from ..parallel.moe import moe_ffn
 
 Params = Dict[str, Any]
 Layer = Dict[str, torch.Tensor]
@@ -54,7 +56,7 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # MoE (Mixtral-style) when n_experts > 0: not ported yet.
+    # MoE (Mixtral-style) when n_experts > 0.
     n_experts: int = 0
     top_k: int = 2
     capacity_factor: float = 1.25
@@ -98,32 +100,28 @@ class LlamaConfig:
         )
 
 
-def require_dense(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet: ROADMAP.md Queue 1, "
-            "'parallel/ and the MoE and sp paths'"
-        )
-
-
 def param_shapes(cfg: LlamaConfig) -> Params:
-    """Shape of every leaf, keyed as in ``init_params``."""
-    require_dense(cfg)
+    """Shape of every leaf, keyed as in ``init_params``. MoE layers hold a
+    router [L, M, E] and experts [L, E, ...] (JAX ``:130-140``)."""
     M, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     H, Hkv, Dh, V = cfg.num_heads, cfg.num_kv_heads, cfg.dh, cfg.vocab_size
+    layers = {
+        "attn_norm": (L, M),
+        "wq": (L, M, H, Dh),
+        "wk": (L, M, Hkv, Dh),
+        "wv": (L, M, Hkv, Dh),
+        "wo": (L, H, Dh, M),
+        "mlp_norm": (L, M),
+    }
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        layers.update(router=(L, M, E), w_gate=(L, E, M, Fd),
+                      w_up=(L, E, M, Fd), w_down=(L, E, Fd, M))
+    else:
+        layers.update(w_gate=(L, M, Fd), w_up=(L, M, Fd), w_down=(L, Fd, M))
     return {
         "embed": (V, M),
-        "layers": {
-            "attn_norm": (L, M),
-            "wq": (L, M, H, Dh),
-            "wk": (L, M, Hkv, Dh),
-            "wv": (L, M, Hkv, Dh),
-            "wo": (L, H, Dh, M),
-            "mlp_norm": (L, M),
-            "w_gate": (L, M, Fd),
-            "w_up": (L, M, Fd),
-            "w_down": (L, Fd, M),
-        },
+        "layers": layers,
         "final_norm": (M,),
         "lm_head": (M, V),
     }
@@ -133,11 +131,21 @@ def _is_norm(name: str) -> bool:
     return name.endswith("norm")
 
 
+def leaf_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
+    """The dtype of leaf ``name`` (``"embed"``, ``"layers.router"``, ...):
+    float32 for the norms and the MoE router, ``cfg.dtype`` for the rest,
+    as in JAX's ``init_params``."""
+    if _is_norm(name) or name.endswith("router"):
+        return torch.float32
+    return cfg.dtype
+
+
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Params:
     """Random weights drawn on ``device`` from ``generator`` (a generator
     on that device; default: one seeded with 0). Matrices are normal with
-    std fan_in ** -0.5 in ``cfg.dtype``; norms are float32 ones, as in
+    std fan_in ** -0.5 in ``cfg.dtype``; norms are float32 ones, and the
+    MoE router is drawn in ``cfg.dtype`` and widened to float32, as in
     JAX. Stacked leaves are drawn one layer at a time, so the float32 draw
     never holds a whole stacked leaf."""
     dev = resolve_device(device)
@@ -147,7 +155,7 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     fan_in = {"wq": cfg.hidden_size, "wk": cfg.hidden_size,
               "wv": cfg.hidden_size, "wo": cfg.num_heads * cfg.dh,
               "w_gate": cfg.hidden_size, "w_up": cfg.hidden_size,
-              "w_down": cfg.intermediate_size}
+              "w_down": cfg.intermediate_size, "router": cfg.hidden_size}
 
     def winit(shape, fan):
         out = torch.empty(shape, dtype=cfg.dtype, device=dev)
@@ -162,7 +170,8 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
         if _is_norm(name):
             layers[name] = torch.ones(shape, dtype=torch.float32, device=dev)
         else:
-            layers[name] = winit(shape, fan_in[name])
+            layers[name] = winit(shape, fan_in[name]).to(
+                leaf_dtype(cfg, name))
     M = cfg.hidden_size
     return {
         "embed": winit(shapes["embed"], M),
@@ -272,14 +281,30 @@ def _attention(cfg: LlamaConfig, q, k, v):
     return mha_attention(q, k, v, causal=True)
 
 
+def ffn(cfg: LlamaConfig, h: torch.Tensor, lp: Layer,
+        token_mask: Optional[torch.Tensor] = None):
+    """The block's feed-forward on normed ``h``: (out, aux), the MoE layer
+    and its aux loss when ``cfg.n_experts > 0`` (rows with ``token_mask``
+    0 routed nowhere), else the dense MLP and None. No MoE product is
+    named, so the "mlp" remat policy saves nothing in MoE layers, as in
+    JAX."""
+    if cfg.n_experts > 0:
+        return moe_ffn(h, lp["router"], lp["w_up"], lp["w_down"],
+                       k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       w_gate=lp["w_gate"], token_mask=token_mask)
+    return mlp(h, lp), None
+
+
 def _layer(cfg: LlamaConfig, positions, x, lp):
-    """One transformer block. x [B, S, M]."""
+    """One transformer block. x [B, S, M]. Returns (x, the MoE aux loss or
+    None for a dense block)."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     q = rope(project_heads(h, lp["wq"]), positions, cfg.rope_theta)
     k = rope(project_heads(h, lp["wk"]), positions, cfg.rope_theta)
     v = project_heads(h, lp["wv"])
     x = x + project_out(_attention(cfg, q, k, v), lp["wo"])
-    return x + mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp)
+    out, aux = ffn(cfg, rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp)
+    return x + out, aux
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
@@ -330,9 +355,15 @@ def scan_chunks(cfg: LlamaConfig) -> Tuple[int, int]:
 
 
 def _run_layers(cfg: LlamaConfig, positions, x, layers: List[Layer]):
+    """(x after ``layers``, their MoE aux losses summed, or None when the
+    blocks are dense). The aux leaves a checkpointed chunk as an output,
+    so the router gets its gradient through it."""
+    auxes = []
     for lp in layers:
-        x = _layer(cfg, positions, x, lp)
-    return x
+        x, aux = _layer(cfg, positions, x, lp)
+        if aux is not None:
+            auxes.append(aux)
+    return x, (sum(auxes) if auxes else None)
 
 
 def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -349,7 +380,6 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     (non-reentrant), as JAX puts one ``jax.checkpoint`` around each scan
     step. The loop is JAX's scan, so ``scan_layers`` changes nothing
     numerically."""
-    require_dense(cfg)
     B, S = tokens.shape
     x = embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device)
@@ -359,15 +389,20 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     remat = (cfg.remat and cfg.remat_policy != "save_all"
              and torch.is_grad_enabled())
     context_fn = remat_context_fn(cfg)
+    auxes = []
     for c in range(0, cfg.num_layers, K):
         chunk = layers[c:c + K]
         if remat:
-            x = checkpoint(_run_layers, cfg, positions, x, chunk,
-                           use_reentrant=False, context_fn=context_fn)
+            x, aux = checkpoint(_run_layers, cfg, positions, x, chunk,
+                                use_reentrant=False, context_fn=context_fn)
         else:
-            x = _run_layers(cfg, positions, x, chunk)
+            x, aux = _run_layers(cfg, positions, x, chunk)
+        if aux is not None:
+            auxes.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if not auxes:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, sum(auxes)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,

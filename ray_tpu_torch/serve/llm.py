@@ -36,7 +36,7 @@ from ..models.generation import (
     paged_prefill,
     sample_logits,
 )
-from ..models.llama import LlamaConfig, init_params, require_dense
+from ..models.llama import LlamaConfig, init_params
 
 
 class _Request:
@@ -73,7 +73,8 @@ class _Request:
 
 
 class LLMEngine:
-    """Paged continuous-batching decode engine over the Llama family.
+    """Paged continuous-batching decode engine over the Llama family, dense
+    or MoE.
 
     ``params`` must already be on ``device`` (default: the CUDA card;
     ``device="cpu"`` runs on the CPU). ``seed`` seeds the sampling
@@ -84,7 +85,6 @@ class LLMEngine:
                  page_size: int = 16, total_pages: Optional[int] = None,
                  device: DeviceLike = None, seed: int = 0):
         self.device = resolve_device(device)
-        require_dense(cfg)
         check_params_device(params, self.device)
         self.cfg = cfg
         self.params = params

@@ -5,7 +5,9 @@ A step does, in order: the forward with remat and the chunked
 cross-entropy (``models/llama.py``: ``causal_lm_loss``), the backward (the
 flash-attention backward kernels where ``cfg.use_flash``), AdamW
 (``optim.AdamW``, equal to ``optax.adamw(learning_rate)``), and the update
-of parameters and optimizer state in place.
+of parameters and optimizer state in place. For an MoE config the loss
+adds ``aux_weight`` times the summed load-balancing loss, and the tree
+mixes dtypes: the router and its moments are float32, like the norms.
 
 JAX compiles the step into one XLA program and donates the parameter and
 state buffers into it (``donate_argnums=(0, 1)``). PyTorch runs eagerly;
@@ -30,7 +32,6 @@ from ..models.llama import (
     causal_lm_loss,
     init_params,
     num_params,
-    require_dense,
     scan_chunks,
     trainable_leaves,
 )
@@ -60,7 +61,6 @@ class CompiledTrainStep:
         aux_weight: float = 0.01,
         device: DeviceLike = None,
     ):
-        require_dense(cfg)
         scan_chunks(cfg)  # validate the chunk schedule up front
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -8,7 +8,8 @@ decoupled and scaled by the learning rate:
     p -= lr * (mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p)
 
 The moments are kept in the parameters' dtype, as optax's ``mu_dtype=None``
-does (bf16 moments for bf16 weights, float32 for the norms). torch's AdamW
+does (bf16 moments for bf16 weights, float32 for the norms and the MoE
+router). torch's AdamW
 computes the same update (its weight decay multiplies p by 1 - lr * wd
 before the Adam step, which is the same sum); its defaults differ
 (weight decay 1e-2), so every argument is passed. The update runs as

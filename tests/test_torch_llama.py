@@ -120,9 +120,28 @@ def test_forward_logits_match_jax(tiny, use_flash):
     assert float(aux) == 0.0
 
 
-def test_moe_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_params(LlamaConfig.tiny(moe=True), device="cpu")
+def test_moe_params_carry_over_leaf_for_leaf():
+    """The MoE tree (router [L, M, E], experts [L, E, ...]) loads 1:1 from
+    JAX's; the router stays float32 in a bf16 model, as JAX keeps it, and
+    the port's own init gives the same layout and dtypes."""
+    jcfg = dataclasses.replace(JaxConfig.tiny(moe=True), dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(LlamaConfig.tiny(moe=True), dtype=torch.bfloat16)
+    tree = jax.tree.map(np.asarray, jax_init(jcfg, jax.random.PRNGKey(1)))
+    params = params_from_numpy(tree, cfg, "cpu")
+    for name, leaf in tree["layers"].items():
+        got = params["layers"][name]
+        assert got.dtype == (torch.bfloat16 if leaf.dtype.name == "bfloat16"
+                             else torch.float32), name
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      leaf.astype(np.float32), err_msg=name)
+    assert tree["layers"]["router"].dtype == np.float32
+    assert params["layers"]["w_down"].shape == (2, 4, 128, 64)  # [L,E,F,M]
+    own = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in own["layers"].items()} \
+        == {k: (tuple(v.shape), v.dtype) for k, v in params["layers"].items()}
+    # Drawn in bf16, then widened: every router entry is a bf16 value.
+    router = own["layers"]["router"]
+    assert torch.equal(router, router.to(torch.bfloat16).float())
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
