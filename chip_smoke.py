@@ -33,6 +33,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      engine's requests one after the other (an MoE batch's routing depends
      on who shares it), every layer's dispatch tensor equal card against
      CPU, and some assignments dropped for want of capacity;
+  4d. ring attention as n = 4 blocks in one process at the 8B attention
+     width (B = 1, S = 8192, H = 32, Hkv = 8, D = 128, causal, bf16): the
+     per-block flash forward, log-sum-exp merge and flash backward that
+     ring_attention_shard runs on the card, against one whole-sequence
+     flash call (O, lse, dq, dk, dv), with exact launch counts (n(n+1)/2
+     of each kernel) and the ring's device ms beside the whole call's;
   5. Llama-3-8B at full width and depth, random bf16 weights drawn on the
      card from a seed, served by LLMEngine(max_batch=4, max_len=512,
      page_size=16): six concurrent requests, more than the slots, with
@@ -45,16 +51,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      a breakdown of a decode step and a prefill that splits out the expert
      products and routing;
   7. Llama-3-8B at full width and depth trained by CompiledTrainStep (full
-     remat, loss_chunk 512, AdamW, B = 1, S = 2048): loss and gradient
-     norms with the flash kernels against plain attention, then 2 warm-up
-     and 5 measured steps (ms/step, tokens/s, MFU, peak memory) and one
-     step at B = 8, S = 512 (the KV-head dK/dV grid), with every launch
-     counter reset just before and read just after, and a profiler
-     breakdown of one step;
+     remat, loss_chunk 512, AdamW, B = 1, S = 2048) through the device
+     mesh: make_mesh() at world size 1 over NCCL, every collective over a
+     group of one. Loss and gradient norms with the flash kernels against
+     plain attention, then 2 warm-up and 5 measured steps (ms/step,
+     tokens/s, MFU, peak memory) and one step at B = 8, S = 512 (the
+     KV-head dK/dV grid), with every launch counter reset just before and
+     read just after, the same step without a mesh timed in turns with it,
+     and a profiler breakdown of one step;
   7b. Mixtral-8x7B at full width, cut to 4 layers (6.07 B parameters),
-     trained the same way at B = 1, S = 2048: step-0 loss flash against
-     plain attention, the MoE aux loss, 2 warm-up and 3 measured steps, and
-     a breakdown of one step;
+     trained the same way (without a mesh) at B = 1, S = 2048: step-0
+     loss flash against plain attention, the MoE aux loss, 2 warm-up and 3
+     measured steps, and a breakdown of one step;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -692,6 +700,120 @@ def phase_moe_parity():
     assert differ == 0 and n_drop[0] == n_drop[1] > 0, (differ, n_drop)
 
 
+def split_blocks(t, n):
+    """n contiguous sequence blocks of [B, S, H, D]."""
+    Sl = t.shape[1] // n
+    return [t[:, i * Sl:(i + 1) * Sl].contiguous() for i in range(n)]
+
+
+def ring_blocks_fwd(qb, kb, vb):
+    """Ring attention over n sequence blocks in one process, as every rank
+    of an n-rank ring runs it (``ring_attention._RingFlash.forward``): the
+    flash forward on each visible KV block at its global offsets, merged by
+    log-sum-exp. Returns per query block (O, lse)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.ring_attention import merge_block, visible
+
+    n, Sl = len(qb), qb[0].shape[1]
+    out = []
+    for my in range(n):
+        o = lse = None
+        for s in range(n):
+            j = (my - s) % n
+            if visible(my, j, True):
+                o_b, lse_b = fa.flash_attention_fwd(
+                    qb[my], kb[j], vb[j], causal=True, q_offset=my * Sl,
+                    kv_offset=j * Sl)
+                o, lse = merge_block(o, lse, o_b, lse_b)
+        out.append((o.to(qb[0].dtype), lse))
+    return out
+
+
+def ring_blocks_bwd(qb, kb, vb, dob, fwd):
+    """The ring's backward over the same blocks
+    (``ring_attention._RingFlash.backward``): the flash backward on each
+    visible block with the merged O and the global lse, dq, dk and dv
+    summed in float32 and cast once. Returns whole-sequence dq, dk, dv."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.ring_attention import visible
+
+    n, Sl = len(qb), qb[0].shape[1]
+    dq = [torch.zeros_like(b, dtype=torch.float32) for b in qb]
+    dk = [torch.zeros_like(b, dtype=torch.float32) for b in kb]
+    dv = [torch.zeros_like(b, dtype=torch.float32) for b in vb]
+    for my in range(n):
+        o, lse = fwd[my]
+        for s in range(n):
+            j = (my - s) % n
+            if visible(my, j, True):
+                g = fa.flash_attention_bwd(
+                    qb[my], kb[j], vb[j], o, lse, dob[my], causal=True,
+                    q_offset=my * Sl, kv_offset=j * Sl)
+                dq[my] += g[0]
+                dk[j] += g[1]
+                dv[j] += g[2]
+    return tuple(torch.cat(parts, dim=1).to(qb[0].dtype)
+                 for parts in (dq, dk, dv))
+
+
+def phase_ring(card: str):
+    """Ring attention's kernel path at the 8B attention width as n = 4
+    blocks of 2048 in one process, against one whole-sequence flash call.
+    Tolerances: PERF.md section 2's (O 2e-2, lse 1e-3, gradients 1% of the
+    largest whole-call gradient)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    B, S, n, H, Hkv, D = 1, 8192, 4, 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    o_ref, lse_ref = fa.flash_attention_fwd(q, k, v, causal=True)
+    grads_ref = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do,
+                                       causal=True)
+    blocks_in = [split_blocks(t, n) for t in (q, k, v)]
+    dob = split_blocks(do, n)
+    # The main path: the ring's forward and backward once, counted.
+    train_launches(reset=True)
+    fwd = ring_blocks_fwd(*blocks_in)
+    grads = ring_blocks_bwd(*blocks_in, dob, fwd)
+    torch.cuda.synchronize()
+    launches = train_launches()
+    o = torch.cat([f[0] for f in fwd], dim=1)
+    lse = torch.cat([f[1] for f in fwd], dim=1)
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_l = (lse - lse_ref).abs().max().item()
+    rel = [((g.float() - w.float()).abs().max()
+            / w.float().abs().max()).item() for g, w in zip(grads, grads_ref)]
+    blocks = n * (n + 1) // 2
+    want = {"flash_fwd": blocks, "flash_bwd_dq": blocks}
+    log(f"[ring] causal ring attention as {n} blocks of {S // n} in one "
+        f"process (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, bf16) against one "
+        f"whole-sequence flash call: max|dO|={err_o:.3e} (tol 2e-2), "
+        f"max|dlse|={err_l:.3e} (tol 1e-3), dq/dk/dv max|d| / max|whole| "
+        f"{rel[0]:.3e} / {rel[1]:.3e} / {rel[2]:.3e} (tol 1e-2); launches "
+        f"{launches} (want {blocks} forward, {blocks} dQ, {blocks} dK/dV)")
+    ring_f = device_ms(lambda: ring_blocks_fwd(*blocks_in), reps=5)
+    whole_f = device_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                        reps=5)
+    ring_b = device_ms(lambda: ring_blocks_bwd(*blocks_in, dob, fwd), reps=5)
+    whole_b = device_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, o_ref, lse_ref, do, causal=True), reps=5)
+    log(f"[ring] device ms on {card} (the card alone, mean of 5): forward "
+        f"ring {ring_f:.4f} (its {blocks} kernels, {blocks - n} merges) vs "
+        f"whole {whole_f:.4f} ({ring_f / whole_f:.2f}x); backward ring "
+        f"{ring_b:.4f} vs whole {whole_b:.4f} ({ring_b / whole_b:.2f}x)")
+    assert err_o <= 2e-2 and err_l <= 1e-3 and max(rel) <= 1e-2, (
+        err_o, err_l, rel)
+    assert {k: launches[k] for k in want} == want, launches
+    assert (launches["flash_bwd_dkv"] + launches["flash_bwd_dkv_per_head"]
+            == blocks), launches
+    del q, k, v, do, o_ref, lse_ref, grads_ref, fwd, grads, blocks_in, dob
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_slice(card: str):
     """Llama-3-8B at full width served by the engine."""
     from ray_tpu_torch.models import LlamaConfig, forward, init_params
@@ -926,13 +1048,19 @@ def train_launches(reset: bool = False):
 
 
 def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
-                measured: int = 5, short_step: bool = True):
+                measured: int = 5, short_step: bool = True,
+                mesh: bool = False):
     """Llama-3-8B at full width and depth (or ``cfg``) trained on the card:
     2 warm-up and ``measured`` steps at B = 1, S = 2048, then, with
-    ``short_step``, one at B = 8, S = 512."""
+    ``short_step``, one at B = 8, S = 512. With ``mesh`` the step runs
+    through ``make_mesh()`` (world size 1, NCCL), and afterwards the same
+    step without a mesh is timed in turns with it on the same weights."""
+    import torch.distributed as dist
+
     from ray_tpu_torch.models import LlamaConfig
     from ray_tpu_torch.models.llama import hidden_forward
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.train import CompiledTrainStep
 
     cfg = cfg or LlamaConfig.llama3_8b()  # remat "full", loss_chunk 512
@@ -941,7 +1069,8 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    step = CompiledTrainStep(cfg, learning_rate=1e-3)
+    step = CompiledTrainStep(cfg, learning_rate=1e-3,
+                             mesh=make_mesh() if mesh else None)
     params, opt_state = step.init(
         torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -950,7 +1079,9 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
     log(f"[{tag}] {name}: {P / 1e9:.3f} B params, {cfg.num_layers} "
         f"layers, bf16, AdamW(1e-3); params, grads and moments allocated in "
         f"{time.perf_counter() - t0:.1f} s: "
-        f"{torch.cuda.memory_allocated() / gb:.2f} GB on the card")
+        f"{torch.cuda.memory_allocated() / gb:.2f} GB on the card"
+        + (f"; through the mesh {step.mesh} on a {dist.get_backend()} group "
+           f"of {dist.get_world_size()}" if mesh else ""))
     saved = cfg.num_layers * B * S * cfg.hidden_size * 2
     log(f"[{tag}] memory reckoning: bf16 params {2 * P / gb:.1f} GB + grads "
         f"{2 * P / gb:.1f} GB + bf16 m and v {4 * P / gb:.1f} GB = "
@@ -959,6 +1090,8 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
         f"bf16) + under 2 GB for one layer's recompute: under 80 GB")
     tokens = torch.tensor(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (B, S + 1)), dtype=torch.int32, device="cuda")
+    if mesh:  # this rank's window: at world size 1 the whole batch
+        tokens = step.token_sharding().cut(tokens)
     if cfg.n_experts:
         with torch.inference_mode():
             aux = hidden_forward(params, tokens[:, :-1], cfg)[1].item()
@@ -1023,6 +1156,8 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
     launches = train_launches()
     peak = torch.cuda.max_memory_allocated()
     ms = float(np.median(times[2:])) * 1e3
+    if mesh:
+        compare_without_mesh(step, params, opt_state, tokens, card, tag)
     tps = B * S / (ms / 1e3)
     L = cfg.num_layers
     # MoE: the parameters a token passes through (top_k of the experts).
@@ -1067,7 +1202,37 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
         assert ok, what
     del params, opt_state, step
     torch.cuda.empty_cache()
+    if mesh:
+        dist.destroy_process_group()
     return launches
+
+
+def compare_without_mesh(step, params, opt_state, tokens, card, tag):
+    """The mesh step against the same step without a mesh, on the same
+    weights and gradient buffers, in turns (mesh, plain, plain, mesh; 3
+    steps each, after the main path's): median ms/step and peak memory of
+    each."""
+    from ray_tpu_torch.train import CompiledTrainStep
+
+    plain = CompiledTrainStep(step.cfg, learning_rate=1e-3, device=step.device)
+    plain._grads = step.grads  # the same buffers: no second 14.5 GB
+    runs = {"mesh": [], "plain": []}
+    peaks = {"mesh": 0, "plain": 0}
+    for which in ("mesh", "plain", "plain", "mesh"):
+        run = step if which == "mesh" else plain
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(params, opt_state, tokens)[2].item()
+            runs[which].append(time.perf_counter() - t)
+        peaks[which] = max(peaks[which], torch.cuda.max_memory_allocated())
+    ms = {k: float(np.median(v)) * 1e3 for k, v in runs.items()}
+    log(f"[{tag}] in turns on {card} (mesh, none, none, mesh; 3 steps each):"
+        f" through the world-size-1 mesh {ms['mesh']:.1f} ms/step, peak "
+        f"{peaks['mesh'] / 1e9:.2f} GB; without a mesh {ms['plain']:.1f} "
+        f"ms/step, peak {peaks['plain'] / 1e9:.2f} GB "
+        f"({ms['mesh'] / ms['plain']:.3f}x)")
 
 
 def phase_train_moe(card: str):
@@ -1094,6 +1259,23 @@ def phase_train_breakdown(step, params, opt_state, tokens):
         wall = (time.perf_counter() - t) * 1e3
     _report("train step B=1 S=2048", wall, _device_kernels(prof, 1),
             kinds=TRAIN_KINDS, top=12, moe=_moe_ranges(prof, 1))
+    _host_report(prof)
+
+
+def _host_report(prof):
+    """The host side of a profiled step: collective calls (the c10d
+    ``nccl:*`` ranges) with their CPU time, and the ops with the most CPU
+    time of their own."""
+    from torch.autograd import DeviceType
+
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    coll = [e for e in rows if e.key.startswith(("nccl:", "c10d::"))]
+    top = sorted(rows, key=lambda e: -e.self_cpu_time_total)[:8]
+    log("[breakdown] host: collective calls " + (", ".join(
+        f"{e.key} x{e.count} {e.cpu_time_total / 1e3:.1f} ms" for e in coll)
+        or "none") + "; most CPU time of their own: " + ", ".join(
+        f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.1f} ms"
+        for e in top))
 
 
 def _device_kernels(prof, steps: int):
@@ -1255,8 +1437,10 @@ def main() -> int:
     phase_parity()
     phase_train_parity()
     phase_moe_parity()
+    ring = {"ring": phase_ring(card)}
     serve = {"serve": phase_slice(card), "serve_moe": phase_slice_moe(card)}
-    train = {"train": phase_train(card), "train_moe": phase_train_moe(card)}
+    train = {"train": phase_train(card, mesh=True),
+             "train_moe": phase_train_moe(card)}
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"
@@ -1268,19 +1452,22 @@ def main() -> int:
 
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
-             replaces=fa_src + "40", **launched("flash_fwd", {**serve, **train}),
+             replaces=fa_src + "40",
+             **launched("flash_fwd", {**serve, **train, **ring}),
              shape="B=1 S=2048 " + attn, **kern["flash_fwd_S2048"]),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
-             replaces=fa_src + "144", **launched("flash_bwd_dq", train),
+             replaces=fa_src + "144",
+             **launched("flash_bwd_dq", {**train, **ring}),
              shape="B=1 S=2048 " + attn, library=sdpa_bwd,
              **kern["flash_bwd_dq_B1_S2048"]),
         dict(name="flash_bwd_dkv", route="cuda", source=src + "flash_bwd.cu",
-             replaces=fa_src + "187", **launched("flash_bwd_dkv", train),
+             replaces=fa_src + "187",
+             **launched("flash_bwd_dkv", {**train, **ring}),
              shape="B=8 S=512 KV-head grid " + attn, library=sdpa_bwd,
              **kern["flash_bwd_dkv_B8_S512"]),
         dict(name="flash_bwd_dkv_per_head", route="cuda",
              source=src + "flash_bwd.cu", replaces=fa_src + "344",
-             **launched("flash_bwd_dkv_per_head", train),
+             **launched("flash_bwd_dkv_per_head", {**train, **ring}),
              shape="B=1 S=2048 per-query-head grid " + attn,
              library=sdpa_bwd, **kern["flash_bwd_dkv_per_head_B1_S2048"]),
         dict(name="paged_decode", route="cuda",

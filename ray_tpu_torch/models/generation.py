@@ -329,9 +329,13 @@ def generate(
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
+    eos_token: Optional[int] = None,
 ) -> torch.Tensor:
     """Batch generation (prefill, then one decode step per token) on
-    ``device`` (default: the CUDA card). Returns [B, max_new_tokens]."""
+    ``device`` (default: the CUDA card). Returns [B, max_new_tokens].
+    ``eos_token`` is accepted and, as in the JAX ``generate``, not used:
+    every row runs ``max_new_tokens`` steps (the engine stops a request at
+    its eos)."""
     dev = resolve_device(device)
     check_params_device(params, dev)
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=dev)

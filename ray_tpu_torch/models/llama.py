@@ -15,8 +15,28 @@ chunked cross-entropy and ``causal_lm_loss``; :func:`trainable_leaves`
 gives the backward per-layer leaves whose gradients land in one stacked
 buffer. With ``n_experts > 0`` each block's feed-forward is the MoE layer
 (``parallel/moe.py``, JAX ``:238-245``) and its aux loss is summed over the
-layers. Sharding constraints and sequence parallelism come with the
-``parallel/`` slice.
+layers.
+
+Under a device mesh (``mesh=``, ``parallel/mesh.py``) every rank runs the
+same code on its local shards (explicit SPMD; JAX leaves this to GSPMD).
+:func:`param_logical_axes` and the rules (``parallel/sharding.py``) say
+which slice of each weight a rank holds, and the model calls the
+collectives at fixed points (:class:`MeshPlan`):
+- ``fsdp`` (and any other axis a rule puts on a weight dim other than
+  heads, MLP columns or vocabulary) is all-gathered per layer inside the
+  remat'd region, so the recompute gathers again and the saved tensors
+  stay sharded; the gather's backward reduce-scatters the gradient.
+- ``tp`` (Megatron): local heads, MLP columns and vocabulary rows; an
+  all-reduce after ``wo`` and after ``w_down``; the embedding is a masked
+  lookup summed over ``tp``, and the loss takes its log-sum-exp and target
+  logit across ``tp`` (no rank gathers the vocabulary).
+- ``dp``/``fsdp`` split the batch and ``sp`` the sequence (rope positions
+  are global); attention over a split sequence is the ring
+  (``parallel/ring_attention.py``). The loss's sums are all-reduced over
+  the data axes.
+Pipeline stages (``pp`` > 1) and MoE layers under a mesh axis > 1 raise
+``NotImplementedError``: under GSPMD JAX routes over the global token axis,
+which local routing would change (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -24,7 +44,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +58,18 @@ from torch.utils.checkpoint import (
 from .._device import DeviceLike, index_like_jax, resolve_device
 from ..ops.attention import mha_attention
 from ..ops.flash_attention import flash_attention
+from ..parallel import collectives as coll
+from ..parallel.mesh import AXIS_ORDER, mesh_axis_size
 from ..parallel.moe import moe_ffn
+from ..parallel.ring_attention import ring_attention
+from ..parallel.sharding import (
+    DEFAULT_RULES,
+    NamedSharding,
+    Rule,
+    entry_axes,
+    logical_to_spec,
+    tree_map,
+)
 
 Params = Dict[str, Any]
 Layer = Dict[str, torch.Tensor]
@@ -127,6 +158,127 @@ def param_shapes(cfg: LlamaConfig) -> Params:
     }
 
 
+def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Logical axes of each parameter leaf (maps through DEFAULT_RULES:
+    embed->fsdp, heads/mlp/vocab->tp, expert->ep, layers->pp); JAX
+    ``:121-148``."""
+    layer = {
+        "attn_norm": ("layers", "norm"),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "mlp_norm": ("layers", "norm"),
+    }
+    if cfg.n_experts > 0:
+        layer.update(
+            router=("layers", "embed", None),
+            w_gate=("layers", "expert", "embed", "mlp"),
+            w_up=("layers", "expert", "embed", "mlp"),
+            w_down=("layers", "expert", "mlp", "embed"),
+        )
+    else:
+        layer.update(
+            w_gate=("layers", "embed", "mlp"),
+            w_up=("layers", "embed", "mlp"),
+            w_down=("layers", "mlp", "embed"),
+        )
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+# Logical axes whose weight dims stay split (Megatron tensor parallelism):
+# the model computes on the local slice and reduces the result.
+_LOCAL_AXES = frozenset({"heads", "kv_heads", "mlp", "vocab"})
+
+
+class MeshPlan:
+    """Where the model's collectives go under ``mesh`` and ``rules``: the
+    spec of every leaf (unpruned, so an axis of size 1 is a group of one
+    and the code is the same at any world size), the axes to all-reduce
+    after the attention output and the MLP, the vocabulary's axes, and the
+    data axes the batch and the sequence split over."""
+
+    def __init__(self, cfg: LlamaConfig, mesh, rules: Sequence[Rule]):
+        self.mesh = mesh
+        self.axes = param_logical_axes(cfg)
+        self.specs = tree_map(lambda a: logical_to_spec(a, rules), self.axes)
+        if mesh_axis_size(mesh, "pp") > 1:
+            raise NotImplementedError(
+                "pipeline stages (pp > 1) are not ported (ROADMAP Queue 1 "
+                "item 2)")
+        if cfg.n_experts > 0 and any(mesh_axis_size(mesh, a) > 1
+                                     for a in AXIS_ORDER):
+            raise NotImplementedError(
+                "an MoE model under a mesh axis > 1: JAX routes over the "
+                "global token axis, and routing each rank's tokens alone "
+                "would change capacity and drops; expert parallelism is "
+                "ROADMAP Queue 1 item 2")
+        lay = self.specs["layers"]
+
+        def same(*entries):
+            if len(set(entries)) != 1:
+                raise ValueError(f"rules split matching dims differently: "
+                                 f"{entries}")
+            return entry_axes(entries[0])
+
+        self.heads = same(lay["wq"][2], lay["wk"][2], lay["wv"][2],
+                          lay["wo"][1])
+        mlp_dim = 3 if cfg.n_experts > 0 else 2
+        self.mlp = same(lay["w_gate"][mlp_dim], lay["w_up"][mlp_dim],
+                        lay["w_down"][mlp_dim - 1])
+        self.vocab = same(self.specs["embed"][0], self.specs["lm_head"][1])
+        batch, seq = logical_to_spec(("batch", "seq"), rules)
+        self.batch, self.seq = entry_axes(batch), entry_axes(seq)
+        if mesh_axis_size(mesh, "sp") > 1 and self.seq != ("sp",):
+            raise ValueError("sequence parallelism needs the rule seq -> sp")
+        self.data = self.batch + self.seq
+        clash = set(self.data) & set(self.heads + self.mlp + self.vocab)
+        if clash:
+            raise ValueError(f"mesh axes {sorted(clash)} split both the data "
+                             f"and the weights' model-parallel dims")
+        self.tokens = NamedSharding(mesh, (batch, seq))
+
+    def gather(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Leaf ``name`` ("embed", or "layers.wq" for one layer's slice)
+        with every split dim gathered except its heads, MLP columns and
+        vocabulary."""
+        if name.startswith("layers."):
+            key = name[len("layers."):]
+            logical = self.axes["layers"][key][1:]
+            spec = self.specs["layers"][key][1:]
+        else:
+            logical, spec = self.axes[name], self.specs[name]
+        for dim, (axis, entry) in enumerate(zip(logical, spec)):
+            if entry is not None and axis not in _LOCAL_AXES:
+                x = coll.allgather(x, entry, gather_dim=dim, mesh=self.mesh)
+        return x
+
+    def reduce(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        return coll.allreduce(x, axes, mesh=self.mesh) if axes else x
+
+    def vocab_start(self, n_local: int) -> int:
+        """The first id of this rank's ``n_local`` vocabulary rows."""
+        if not self.vocab:
+            return 0
+        return coll.axis_index(self.vocab, mesh=self.mesh) * n_local
+
+    def seq_offset(self, local_len: int) -> int:
+        """Global position of this rank's first token."""
+        return self.tokens.coords(1)[0] * local_len
+
+    def data_shards(self) -> int:
+        return self.tokens.coords(0)[1] * self.tokens.coords(1)[1]
+
+
+def _plan(cfg: LlamaConfig, mesh, rules) -> Optional[MeshPlan]:
+    return None if mesh is None else MeshPlan(cfg, mesh, rules)
+
+
 def _is_norm(name: str) -> bool:
     return name.endswith("norm")
 
@@ -141,43 +293,63 @@ def leaf_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, *,
+                shard: Optional[Callable[[str, torch.Tensor],
+                                         torch.Tensor]] = None) -> Params:
     """Random weights drawn on ``device`` from ``generator`` (a generator
     on that device; default: one seeded with 0). Matrices are normal with
     std fan_in ** -0.5 in ``cfg.dtype``; norms are float32 ones, and the
     MoE router is drawn in ``cfg.dtype`` and widened to float32, as in
     JAX. Stacked leaves are drawn one layer at a time, so the float32 draw
-    never holds a whole stacked leaf."""
+    never holds a whole stacked leaf.
+
+    ``shard(name, tensor)`` keeps a piece of each draw: of one layer's
+    slice of a stacked leaf (name "layers.wq"), or of a whole top-level
+    leaf ("embed"). The draws are the same with or without it, so a
+    sharded init holds the slices of the unsharded one."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    cut = shard or (lambda name, t: t)
     shapes = param_shapes(cfg)
     fan_in = {"wq": cfg.hidden_size, "wk": cfg.hidden_size,
               "wv": cfg.hidden_size, "wo": cfg.num_heads * cfg.dh,
               "w_gate": cfg.hidden_size, "w_up": cfg.hidden_size,
               "w_down": cfg.intermediate_size, "router": cfg.hidden_size}
 
-    def winit(shape, fan):
+    def draw(shape, fan):
+        d = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (d * fan ** -0.5).to(cfg.dtype)
+
+    def winit(shape, fan):  # row by row, as the stacked leaves
         out = torch.empty(shape, dtype=cfg.dtype, device=dev)
         for i in range(shape[0]):
-            draw = torch.randn(shape[1:], generator=generator, device=dev,
-                               dtype=torch.float32)
-            out[i] = (draw * fan ** -0.5).to(cfg.dtype)
+            out[i] = draw(shape[1:], fan)
         return out
 
     layers = {}
     for name, shape in shapes["layers"].items():
-        if _is_norm(name):
-            layers[name] = torch.ones(shape, dtype=torch.float32, device=dev)
-        else:
-            layers[name] = winit(shape, fan_in[name]).to(
-                leaf_dtype(cfg, name))
+        dtype = leaf_dtype(cfg, name)
+        out = None
+        for i in range(shape[0]):
+            if _is_norm(name):
+                full = torch.ones(shape[1:], dtype=dtype, device=dev)
+            else:
+                full = draw(shape[1:], fan_in[name]).to(dtype)
+            piece = cut(f"layers.{name}", full)
+            if out is None:
+                out = torch.empty((shape[0],) + tuple(piece.shape),
+                                  dtype=dtype, device=dev)
+            out[i] = piece
+        layers[name] = out
     M = cfg.hidden_size
     return {
-        "embed": winit(shapes["embed"], M),
+        "embed": cut("embed", winit(shapes["embed"], M)).contiguous(),
         "layers": layers,
-        "final_norm": torch.ones((M,), dtype=torch.float32, device=dev),
-        "lm_head": winit(shapes["lm_head"], M),
+        "final_norm": cut("final_norm", torch.ones(
+            (M,), dtype=torch.float32, device=dev)).contiguous(),
+        "lm_head": cut("lm_head", winit(shapes["lm_head"], M)).contiguous(),
     }
 
 
@@ -275,7 +447,9 @@ def mlp(h: torch.Tensor, lp: Layer) -> torch.Tensor:
     return (F.silu(gate.float()).to(up.dtype) * up) @ lp["w_down"]
 
 
-def _attention(cfg: LlamaConfig, q, k, v):
+def _attention(cfg: LlamaConfig, q, k, v, plan: Optional[MeshPlan] = None):
+    if plan is not None and mesh_axis_size(plan.mesh, "sp") > 1:
+        return ring_attention(q, k, v, plan.mesh, causal=True)
     if cfg.use_flash:
         return flash_attention(q, k, v, causal=True)
     return mha_attention(q, k, v, causal=True)
@@ -295,22 +469,41 @@ def ffn(cfg: LlamaConfig, h: torch.Tensor, lp: Layer,
     return mlp(h, lp), None
 
 
-def _layer(cfg: LlamaConfig, positions, x, lp):
+def _layer(cfg: LlamaConfig, positions, x, lp,
+           plan: Optional[MeshPlan] = None):
     """One transformer block. x [B, S, M]. Returns (x, the MoE aux loss or
-    None for a dense block)."""
+    None for a dense block). Under a mesh ``lp`` holds local shards: the
+    block gathers them, and reduces the attention output and the
+    feed-forward over their tensor-parallel axes."""
+    if plan is not None:
+        lp = {k: plan.gather(f"layers.{k}", w) for k, w in lp.items()}
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     q = rope(project_heads(h, lp["wq"]), positions, cfg.rope_theta)
     k = rope(project_heads(h, lp["wk"]), positions, cfg.rope_theta)
     v = project_heads(h, lp["wv"])
-    x = x + project_out(_attention(cfg, q, k, v), lp["wo"])
+    attn = project_out(_attention(cfg, q, k, v, plan), lp["wo"])
+    x = x + (attn if plan is None else plan.reduce(attn, plan.heads))
     out, aux = ffn(cfg, rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp)
+    if plan is not None:
+        out = plan.reduce(out, plan.mlp)
     return x + out, aux
 
 
-def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig):
-    """Token embeddings; out-of-range ids index as a JAX gather does."""
-    ids = index_like_jax(tokens.long(), params["embed"].shape[0])
-    return params["embed"][ids].to(cfg.dtype)
+def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+          plan: Optional[MeshPlan] = None):
+    """Token embeddings; out-of-range ids index as a JAX gather does.
+    Under a mesh each rank looks up the ids in its vocabulary rows (zeros
+    elsewhere) and the rows are summed over the vocabulary's axes."""
+    if plan is None:
+        ids = index_like_jax(tokens.long(), params["embed"].shape[0])
+        return params["embed"][ids].to(cfg.dtype)
+    ids = index_like_jax(tokens.long(), cfg.vocab_size)
+    w = plan.gather("embed", params["embed"])
+    n = w.shape[0]
+    local = ids - plan.vocab_start(n)
+    inside = (local >= 0) & (local < n)
+    x = w[local.clamp(0, n - 1)] * inside[..., None]
+    return plan.reduce(x.to(cfg.dtype), plan.vocab)
 
 
 _MATMULS = frozenset({
@@ -354,25 +547,29 @@ def scan_chunks(cfg: LlamaConfig) -> Tuple[int, int]:
     return K, cfg.num_layers // K
 
 
-def _run_layers(cfg: LlamaConfig, positions, x, layers: List[Layer]):
+def _run_layers(cfg: LlamaConfig, positions, x, layers: List[Layer],
+                plan: Optional[MeshPlan] = None):
     """(x after ``layers``, their MoE aux losses summed, or None when the
     blocks are dense). The aux leaves a checkpointed chunk as an output,
     so the router gets its gradient through it."""
     auxes = []
     for lp in layers:
-        x, aux = _layer(cfg, positions, x, lp)
+        x, aux = _layer(cfg, positions, x, lp, plan)
         if aux is not None:
             auxes.append(aux)
     return x, (sum(auxes) if auxes else None)
 
 
 def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-                   layers: Optional[List[Layer]] = None,
+                   layers: Optional[List[Layer]] = None, *, mesh=None,
+                   rules: Sequence[Rule] = DEFAULT_RULES,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Transformer trunk without the lm_head: (hidden [B, S, M] after
     final_norm, moe_aux_loss scalar — 0 for the dense model). ``layers``
     overrides the per-layer weights (default: views of the stacked
-    leaves; :func:`trainable_leaves` for a backward pass).
+    leaves; :func:`trainable_leaves` for a backward pass). Under ``mesh``
+    the params are this rank's shards under ``rules`` and ``tokens`` its
+    [B/(dp*fsdp), S/sp] piece; so is the hidden state it returns.
 
     While autograd records, with ``cfg.remat`` and a policy other than
     "save_all", each run of K layers (K from ``scan_chunk`` under
@@ -381,8 +578,11 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     step. The loop is JAX's scan, so ``scan_layers`` changes nothing
     numerically."""
     B, S = tokens.shape
-    x = embed(params, tokens, cfg)
+    plan = _plan(cfg, mesh, rules)
+    x = embed(params, tokens, cfg, plan)
     positions = torch.arange(S, device=x.device)
+    if plan is not None:
+        positions = positions + plan.seq_offset(S)
     if layers is None:
         layers = [layer_params(params, i) for i in range(cfg.num_layers)]
     K = scan_chunks(cfg)[0] if cfg.scan_layers else 1
@@ -393,10 +593,10 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     for c in range(0, cfg.num_layers, K):
         chunk = layers[c:c + K]
         if remat:
-            x, aux = checkpoint(_run_layers, cfg, positions, x, chunk,
+            x, aux = checkpoint(_run_layers, cfg, positions, x, chunk, plan,
                                 use_reentrant=False, context_fn=context_fn)
         else:
-            x, aux = _run_layers(cfg, positions, x, chunk)
+            x, aux = _run_layers(cfg, positions, x, chunk, plan)
         if aux is not None:
             auxes.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -406,30 +606,52 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-            layers: Optional[List[Layer]] = None,
+            layers: Optional[List[Layer]] = None, *, mesh=None,
+            rules: Sequence[Rule] = DEFAULT_RULES,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B, S, V] float32, moe_aux_loss scalar)."""
-    x, aux = hidden_forward(params, tokens, cfg, layers)
-    return (x @ params["lm_head"]).float(), aux
+    """Returns (logits [B, S, V] float32, moe_aux_loss scalar). Under
+    ``mesh`` the logits are this rank's [B/(dp*fsdp), S/sp, V/tp] piece."""
+    x, aux = hidden_forward(params, tokens, cfg, layers, mesh=mesh,
+                            rules=rules)
+    plan = _plan(cfg, mesh, rules)
+    lm_head = params["lm_head"] if plan is None else plan.gather(
+        "lm_head", params["lm_head"])
+    return (x @ lm_head).float(), aux
 
 
-def _nll_sum(x: torch.Tensor, lm_head: torch.Tensor,
-             targets: torch.Tensor) -> torch.Tensor:
+def _nll_sum(x: torch.Tensor, lm_head: torch.Tensor, targets: torch.Tensor,
+             plan: Optional[MeshPlan] = None) -> torch.Tensor:
+    """Summed NLL of ``targets``. Under a mesh ``lm_head`` holds this rank's
+    vocabulary columns: the log-sum-exp and the target logit are combined
+    across the vocabulary's axes (a group of one gives the local values
+    unchanged)."""
     logits = (x @ lm_head).float()
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    if plan is None:
+        tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+        return (lse - tgt).sum()
+    n = lm_head.shape[1]
+    if plan.vocab:
+        top = coll.allreduce(lse.detach(), plan.vocab, "max", mesh=plan.mesh)
+        lse = top + torch.log(plan.reduce(torch.exp(lse - top), plan.vocab))
+    local = targets.long() - plan.vocab_start(n)
+    inside = (local >= 0) & (local < n)
+    tgt = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    tgt = plan.reduce(tgt * inside, plan.vocab)
     return (lse - tgt).sum()
 
 
 def _chunked_nll_sum(x: torch.Tensor, lm_head: torch.Tensor,
-                     targets: torch.Tensor, chunk: int) -> torch.Tensor:
+                     targets: torch.Tensor, chunk: int,
+                     plan: Optional[MeshPlan] = None) -> torch.Tensor:
     """Total next-token NLL over [B, S] positions, streaming the lm_head
     projection and log-sum-exp over S/chunk slices, so no [B, S, V] tensor
     materializes; each slice is recomputed in the backward (JAX
     ``_chunked_nll_sum``, whose padded tail adds 0)."""
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, x.shape[1], chunk):
-        args = (x[:, c0:c0 + chunk], lm_head, targets[:, c0:c0 + chunk])
+        args = (x[:, c0:c0 + chunk], lm_head, targets[:, c0:c0 + chunk],
+                plan)
         if torch.is_grad_enabled():
             total = total + checkpoint(_nll_sum, *args, use_reentrant=False)
         else:
@@ -439,12 +661,31 @@ def _chunked_nll_sum(x: torch.Tensor, lm_head: torch.Tensor,
 
 def causal_lm_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                    *, aux_weight: float = 0.01,
-                   layers: Optional[List[Layer]] = None) -> torch.Tensor:
+                   layers: Optional[List[Layer]] = None, mesh=None,
+                   rules: Sequence[Rule] = DEFAULT_RULES) -> torch.Tensor:
     """Next-token cross entropy (tokens [B, S+1], shifted here). With
     cfg.loss_chunk > 0 and more targets than a chunk, the head projection
-    and softmax stream over sequence chunks (JAX ``causal_lm_loss``)."""
+    and softmax stream over sequence chunks (JAX ``causal_lm_loss``).
+
+    Under ``mesh``, ``tokens`` is this rank's window of the global batch
+    (``CompiledTrainStep.token_sharding``): [B/(dp*fsdp), S/sp + 1], its
+    last token the next window's first, so the targets are the global
+    shift's. Every rank returns the global mean: the NLL sums are
+    all-reduced over the data axes and divided by the global count."""
     targets = tokens[:, 1:]
     chunk = cfg.loss_chunk
+    if mesh is not None:
+        plan = MeshPlan(cfg, mesh, rules)
+        x, aux = hidden_forward(params, tokens[:, :-1], cfg, layers,
+                                mesh=mesh, rules=rules)
+        lm_head = plan.gather("lm_head", params["lm_head"])
+        if chunk and chunk > 0 and targets.shape[1] > chunk:
+            total = _chunked_nll_sum(x, lm_head, targets, chunk, plan)
+        else:
+            total = _nll_sum(x, lm_head, targets, plan)
+        total = plan.reduce(total, plan.data)
+        return (total / (targets.numel() * plan.data_shards())
+                + aux_weight * aux)
     if chunk and chunk > 0 and targets.shape[1] > chunk:
         x, aux = hidden_forward(params, tokens[:, :-1], cfg, layers)
         total = _chunked_nll_sum(x, params["lm_head"], targets, chunk)

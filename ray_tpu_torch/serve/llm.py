@@ -320,7 +320,7 @@ class LLMDeployment:
                  temperature: float = 0.0, seed: int = 0,
                  page_size: int = 16, total_pages: Optional[int] = None,
                  device: DeviceLike = None):
-        if checkpoint_path:
+        if params is None and checkpoint_path:
             raise NotImplementedError(
                 "checkpoint_path needs the checkpoint payload, which is not "
                 "ported yet (ROADMAP.md Queue 1, 'Checkpoint payload')"

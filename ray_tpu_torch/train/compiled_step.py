@@ -17,10 +17,24 @@ gradient buffers are allocated once (at :meth:`CompiledTrainStep.init`, or
 at the first step for parameters made elsewhere) and reused: the backward
 accumulates into them in place through per-layer leaves that share storage
 with the stacked weights (``models/llama.py``: ``trainable_leaves``).
+
+Under a device mesh (``mesh=``, ``rules=``; JAX ``:89-128,160-167``) the
+step is explicit SPMD: each rank holds its local shards of the parameters,
+the AdamW moments and the gradient buffers (``param_logical_axes`` under
+``rules``), takes its window of the global batch (:meth:`token_sharding`)
+and runs the same code, collectives included, at any world size (over
+groups of one at world size 1). Each rank's backward starts from the loss
+divided by the world size: the collectives' backward passes sum the
+gradient over the ranks, so a gradient arrives reduce-scattered over
+``fsdp`` (the backward of the per-layer all-gather) and is then all-reduced
+over every mesh axis its leaf is replicated on (``dp``, ``sp``, and ``tp``
+for the norms), which gives every rank its slice of the single-device
+gradient.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -28,6 +42,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..models.llama import (
     LlamaConfig,
+    MeshPlan,
     Params,
     causal_lm_loss,
     init_params,
@@ -35,7 +50,36 @@ from ..models.llama import (
     scan_chunks,
     trainable_leaves,
 )
+from ..parallel import collectives as coll
+from ..parallel.mesh import AXIS_ORDER
+from ..parallel.sharding import (
+    DEFAULT_RULES,
+    NamedSharding,
+    entry_axes,
+    prune_spec,
+    tree_map,
+)
 from .optim import AdamState, AdamW, leaves, zeros_like_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenSharding:
+    """How a rank cuts the global [B, S+1] token batch: the batch over
+    ``sharding``'s dim-0 axes (dp+fsdp), the sequence over its dim-1 axes
+    (sp). Its window holds its S/sp inputs and one token more, the next
+    window's first, so its targets are the global shift's."""
+
+    sharding: NamedSharding
+
+    def cut(self, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's [B/(dp*fsdp), S/sp + 1] window of ``tokens``."""
+        (bi, bn), (si, sn) = self.sharding.coords(0), self.sharding.coords(1)
+        B, S = tokens.shape[0], tokens.shape[1] - 1
+        if B % bn or S % sn:
+            raise ValueError(f"a [{B}, {S}+1] batch does not split into "
+                             f"{bn} x {sn} pieces")
+        b, s = B // bn, S // sn
+        return tokens[bi * b:(bi + 1) * b, si * s:(si + 1) * s + 1]
 
 
 class CompiledTrainStep:
@@ -50,6 +94,12 @@ class CompiledTrainStep:
     same step on the CPU through the kernels' plain versions.
     ``optimizer`` is an object with ``init(params)`` and
     ``update(params, grads, state)`` (default: ``AdamW(learning_rate)``).
+
+    With ``mesh`` (a ``parallel.mesh.make_mesh`` mesh; ``device`` defaults
+    to its device type) parameters, state and gradients are this rank's
+    shards under ``rules``, and ``tokens`` is this rank's window
+    (``step.token_sharding().cut(global_tokens)``); every rank returns the
+    global loss.
     """
 
     def __init__(
@@ -60,10 +110,20 @@ class CompiledTrainStep:
         optimizer: Optional[AdamW] = None,
         aux_weight: float = 0.01,
         device: DeviceLike = None,
+        mesh=None,
+        rules=DEFAULT_RULES,
     ):
         scan_chunks(cfg)  # validate the chunk schedule up front
         self.cfg = cfg
+        if mesh is not None:
+            device = device if device is not None else mesh.device_type
+            if resolve_device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device_type}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = rules
+        self.plan = None if mesh is None else MeshPlan(cfg, mesh, rules)
         self.optimizer = optimizer or AdamW(learning_rate)
         self.aux_weight = aux_weight
         self._grads: Optional[Params] = None
@@ -71,10 +131,30 @@ class CompiledTrainStep:
     def init(self, generator: Optional[torch.Generator] = None,
              ) -> Tuple[Params, AdamState]:
         """Random (params, opt_state) on the step's device, drawn from
-        ``generator`` (see ``init_params``), with the gradient buffers."""
-        params = init_params(self.cfg, generator, self.device)
+        ``generator`` (see ``init_params``), with the gradient buffers.
+        Under a mesh every rank draws the same stream and keeps its shards:
+        the slices of the single-device init from the same seed."""
+        shard = None
+        if self.plan is not None:
+            def shard(name, full):
+                spec = self.plan.specs
+                for key in name.split("."):
+                    spec = spec[key]
+                if name.startswith("layers."):
+                    spec = spec[1:]  # one layer's slice
+                return NamedSharding(self.mesh, prune_spec(
+                    self.mesh, spec)).local(full)
+        params = init_params(self.cfg, generator, self.device, shard=shard)
         self._grads = zeros_like_tree(params)
         return params, self.optimizer.init(params)
+
+    def token_sharding(self) -> Optional[TokenSharding]:
+        """How this rank cuts the global [B, S+1] batch (batch over the
+        "batch" rule's axes, sequence over the "seq" rule's), or None
+        off-mesh."""
+        if self.plan is None:
+            return None
+        return TokenSharding(self.plan.tokens)
 
     def _grad_buffers(self, params: Params) -> Params:
         ok = self._grads is not None and all(
@@ -94,9 +174,21 @@ class CompiledTrainStep:
         top, layers = trainable_leaves(params, grads)
         with torch.enable_grad():
             loss = causal_lm_loss(top, tokens.to(self.device), self.cfg,
-                                  aux_weight=self.aux_weight, layers=layers)
-            loss.backward()
+                                  aux_weight=self.aux_weight, layers=layers,
+                                  mesh=self.mesh, rules=self.rules)
+            (loss / (1 if self.mesh is None else self.mesh.size())).backward()
+        if self.mesh is not None:
+            self._sum_replicas(grads)
         return loss.detach(), grads
+
+    def _sum_replicas(self, grads: Params) -> None:
+        """All-reduce each gradient over the mesh axes its leaf is
+        replicated on (every axis its spec does not split)."""
+        def reduce(g, spec):
+            split = {a for e in spec for a in entry_axes(e)}
+            coll.allreduce_(g, [a for a in AXIS_ORDER if a not in split],
+                            mesh=self.mesh)
+        tree_map(reduce, grads, self.plan.specs)
 
     def __call__(self, params: Params, opt_state: AdamState,
                  tokens: torch.Tensor) -> Tuple[Params, AdamState,

@@ -346,6 +346,139 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         assert (d > 2e-5).float().mean().item() <= 1e-3, (k, d.max())
 
 
+def _ring_kernel_blocks(q, k, v, do, n):
+    """Ring attention over n sequence blocks in one process through the
+    calls ring_attention._RingFlash makes on each rank: the flash forward
+    per visible block at its global offsets, merge_block, and the flash
+    backward per block with the merged O and global lse (dq, dk, dv summed
+    in float32, cast once). Returns (O, lse, dq, dk, dv), whole-sequence."""
+    from ray_tpu_torch.parallel.ring_attention import merge_block, visible
+
+    Sl = q.shape[1] // n
+    qb, kb, vb, dob = ([t[:, i * Sl:(i + 1) * Sl].contiguous()
+                        for i in range(n)] for t in (q, k, v, do))
+    fwd = []
+    for my in range(n):
+        o = lse = None
+        for j in range(my + 1):  # the causal ring's visible blocks
+            assert visible(my, j, True)
+            o_b, lse_b = fa.flash_attention_fwd(
+                qb[my], kb[j], vb[j], causal=True, q_offset=my * Sl,
+                kv_offset=j * Sl)
+            o, lse = merge_block(o, lse, o_b, lse_b)
+        fwd.append((o.to(q.dtype), lse))
+    grads = [[torch.zeros_like(b, dtype=torch.float32) for b in blocks]
+             for blocks in (qb, kb, vb)]
+    for my in range(n):
+        for j in range(my + 1):
+            g = fa.flash_attention_bwd(
+                qb[my], kb[j], vb[j], *fwd[my], dob[my], causal=True,
+                q_offset=my * Sl, kv_offset=j * Sl)
+            for acc, i, part in zip(grads, (my, j, j), g):
+                acc[i] += part
+    return (torch.cat([f[0] for f in fwd], 1), torch.cat([f[1] for f in fwd],
+                                                           1),
+            *(torch.cat(parts, 1).to(q.dtype) for parts in grads))
+
+
+def _plain_ring_blocks(q, k, v, do, n):
+    """The plain ring over the same blocks in float32 (attention_block_
+    accumulate per visible block, attention_finalize), differentiated by
+    autograd: (O, dq, dk, dv)."""
+    from ray_tpu_torch.ops.attention import (
+        attention_block_accumulate, attention_finalize)
+
+    q, k, v = (t.float().requires_grad_() for t in (q, k, v))
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    kr, vr = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    Sl = S // n
+    pos = torch.arange(S, device=q.device)
+    outs = []
+    for my in range(n):
+        qb = q[:, my * Sl:(my + 1) * Sl]
+        m = torch.full((B, H, Sl), float("-inf"), device=q.device)
+        l = torch.zeros((B, H, Sl), device=q.device)
+        acc = torch.zeros((B, Sl, H, D), device=q.device)
+        for j in range(my + 1):
+            mask = (pos[j * Sl:(j + 1) * Sl][None, :]
+                    <= pos[my * Sl:(my + 1) * Sl][:, None])
+            m, l, acc = attention_block_accumulate(
+                qb, kr[:, j * Sl:(j + 1) * Sl], vr[:, j * Sl:(j + 1) * Sl],
+                m, l, acc, scale=D ** -0.5, mask=mask)
+        outs.append(attention_finalize(l, acc))
+    out = torch.cat(outs, 1)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), do.float()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_ring_block_path_matches_the_plain_ring(cuda, n, dtype):
+    """The ring's kernel path (flash forward per block at global offsets,
+    the log-sum-exp merge, flash backward per block with the global lse)
+    against the plain ring, causal, GQA 4:1, blocks of 100 rows (no tile
+    divides them), with exactly n(n+1)/2 launches of each kernel."""
+    rng = np.random.RandomState(20 + n)
+    B, Sl, H, Hkv, D = 1, 100, 8, 2, 128
+    q, do = (_randn(rng, (B, n * Sl, H, D), dtype, cuda) for _ in range(2))
+    k, v = (_randn(rng, (B, n * Sl, Hkv, D), dtype, cuda) for _ in range(2))
+    before = (fa.launches, fa.bwd_dq_launches,
+              fa.bwd_dkv_launches + fa.bwd_dkv_per_head_launches)
+    o, lse, *grads = _ring_kernel_blocks(q, k, v, do, n)
+    torch.cuda.synchronize()
+    ran = tuple(a - b for a, b in zip(
+        (fa.launches, fa.bwd_dq_launches,
+         fa.bwd_dkv_launches + fa.bwd_dkv_per_head_launches), before))
+    assert ran == (n * (n + 1) // 2,) * 3, ran
+    o_ref, *g_ref = _plain_ring_blocks(q, k, v, do, n)
+    _, lse_ref = fa.flash_attention_fwd(q, k, v, causal=True)
+    np.testing.assert_allclose(lse.cpu(), lse_ref.cpu(), atol=1e-3 if
+                               dtype == torch.bfloat16 else 2e-5, rtol=0)
+    if dtype == torch.float32:
+        for got, want in zip([o] + grads, [o_ref] + g_ref):
+            np.testing.assert_allclose(got.cpu(), want.cpu(), **dict(
+                atol=2e-5, rtol=2e-5))
+    else:
+        assert (o.float() - o_ref).abs().max().item() <= TOL[dtype]
+        for got, want in zip(grads, g_ref):
+            err = (got.float() - want).abs().max().item()
+            assert err <= 1e-2 * want.abs().max().item(), err
+
+
+def test_world_size_one_mesh_step_matches_the_plain_step(cuda):
+    """CompiledTrainStep through make_mesh() (NCCL, a world of one; every
+    collective over a group of one) against the same step without a mesh,
+    float32, TF32 off: two steps' losses and gradients within 1e-6."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train import CompiledTrainStep
+    from ray_tpu_torch.train.optim import leaves
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024,
+                      num_layers=2, num_heads=4, num_kv_heads=2,
+                      rope_theta=10_000.0, dtype=torch.float32, loss_chunk=64)
+    tokens = torch.tensor(np.random.RandomState(4).randint(0, 256, (1, 257)),
+                          dtype=torch.int32, device=cuda)
+    started = not dist.is_initialized()
+    try:
+        plain = CompiledTrainStep(cfg)
+        meshed = CompiledTrainStep(cfg, mesh=make_mesh())
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        runs = [(s, *s.init(torch.Generator(device=cuda).manual_seed(3)))
+                for s in (plain, meshed)]
+        for _ in range(2):
+            (a, b) = (s(p, o, tokens)[2].item() for s, p, o in runs)
+            assert abs(a - b) <= 1e-6, (a, b)
+            for x, y in zip(leaves(plain.grads), leaves(meshed.grads)):
+                assert (x - y).abs().max().item() <= 1e-6
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def test_paged_kernel_layer_form_and_refusals(cuda):
     rng = np.random.RandomState(9)
     L, Hkv, P, page, D = 3, 2, 6, 16, 128

@@ -215,6 +215,9 @@ def fresh_import(tmp_path_factory):
         "import sys, torch\n"
         "import ray_tpu_torch, ray_tpu_torch.serve.llm\n"
         "import ray_tpu_torch.models.convert, ray_tpu_torch.train\n"
+        "import ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
+        "import ray_tpu_torch.parallel.collectives\n"
+        "import ray_tpu_torch.parallel.ring_attention\n"
         "from ray_tpu_torch.ops import _build, flash_attention as fa\n"
         "from ray_tpu_torch.ops import paged_attention as pa\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -130,3 +130,35 @@ def test_failed_step_resets_cache_and_engine_serves_on(tiny, engine,
     assert st["free_pages"] == st["total_pages"]
     assert seen and all(seen)
     assert not torch.is_inference_mode_enabled()
+
+
+def test_generate_takes_eos_token_as_jax_does(tiny):
+    """JAX's generate accepts eos_token and does not use it: both run every
+    row for max_new_tokens steps ([[21, 80]] here, 2 being a sampled token
+    neither stops at)."""
+    jcfg, jparams, cfg, params = tiny
+    want = np.asarray(jax_generate(jparams, jnp.asarray([[1, 2, 3]]), jcfg,
+                                   max_new_tokens=2, eos_token=2))
+    got = generate(params, [[1, 2, 3]], cfg, max_new_tokens=2, eos_token=2,
+                   device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.tolist() == [[21, 80]]
+
+
+def test_deployment_given_params_serves_them_beside_a_checkpoint_path(tiny):
+    """Given params, the deployment serves them and leaves the path alone
+    (ray_tpu/serve/llm.py:377 reads it only without params); the JAX
+    deployment on the same weights answers the same tokens."""
+    from ray_tpu.serve.llm import LLMDeployment as JaxDeployment
+
+    jcfg, jparams, cfg, params = tiny
+    request = {"prompt": [1, 2, 3], "max_new_tokens": 4}
+    jdep = JaxDeployment(jcfg, jparams, checkpoint_path="/nonexistent",
+                         max_batch=2)
+    dep = LLMDeployment(cfg, params, checkpoint_path="/nonexistent",
+                        max_batch=2, device="cpu")
+    try:
+        assert dep(request) == jdep(request)
+    finally:
+        dep.engine.shutdown()
+        jdep.engine.shutdown()
