@@ -39,6 +39,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ring_attention_shard runs on the card, against one whole-sequence
      flash call (O, lse, dq, dk, dv), with exact launch counts (n(n+1)/2
      of each kernel) and the ring's device ms beside the whole call's;
+  4e. expert parallelism's split as n = 4 blocks in one process at the
+     Mixtral-8x7B layer width (M = 4096, F = 14336, 8 experts, top-2,
+     capacity factor 1.25, bf16, x [1, 2048, 4096]): the layer routed once
+     and its experts run as 4 blocks of 2 (moe.expert_block), as each rank
+     of an ep = 4 world runs them, summed, against the whole layer: equal
+     dispatch and the output within 2e-2 of the largest, with both device
+     times;
   5. Llama-3-8B at full width and depth, random bf16 weights drawn on the
      card from a seed, served by LLMEngine(max_batch=4, max_len=512,
      page_size=16): six concurrent requests, more than the slots, with
@@ -60,9 +67,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      read just after, the same step without a mesh timed in turns with it,
      and a profiler breakdown of one step;
   7b. Mixtral-8x7B at full width, cut to 4 layers (6.07 B parameters),
-     trained the same way (without a mesh) at B = 1, S = 2048: step-0
-     loss flash against plain attention, the MoE aux loss, 2 warm-up and 3
-     measured steps, and a breakdown of one step;
+     trained the same way through the world-size-1 mesh at B = 1,
+     S = 2048 (routing over the gathered global token axis, the experts'
+     partial outputs summed over ep and tp): step-0 loss flash against
+     plain attention, the MoE aux loss, step 0's dispatch equal through
+     the mesh and without it, 2 warm-up and 3 measured steps with exact
+     launches, the step without a mesh timed in turns with it, and a
+     breakdown of one step;
+  7c. the GPipe schedule (pipeline_apply) through make_mesh() at world
+     size 1 (pp = 1): the 8B's blocks as the stage function, 4 layers at
+     full width, B = 4, S = 2048, 4 microbatches, remat on; forward and
+     backward against the same 4 layers on the whole batch without the
+     pipeline (hidden state within 2e-2 of the largest, gradient norms
+     within 5%), exact launches, and both times in turns;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -814,6 +831,69 @@ def phase_ring(card: str):
     return launches
 
 
+def phase_ep_blocks(card: str):
+    """One Mixtral-8x7B layer's experts as 4 blocks of 2 in one process,
+    as the ranks of an ep = 4 world run them after the global routing,
+    against the whole layer. bf16; the tolerance is phase 5b's bf16 one for
+    a layer (max|d| <= 2e-2 max|ref|): the blocks' outputs are summed in
+    bf16 where the whole layer sums all experts in one product."""
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.parallel import moe
+
+    cfg = LlamaConfig.mixtral_8x7b()
+    M, Fd, E = cfg.hidden_size, cfg.intermediate_size, cfg.n_experts
+    T, n = 2048, 4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1, T, M, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def draw(shape, fan):  # as init_params draws a weight
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * fan ** -0.5).to(torch.bfloat16)
+
+    router = draw((M, E), M).float()
+    w_gate, w_up = (draw((E, M, Fd), M) for _ in range(2))
+    w_down = draw((E, Fd, M), Fd)
+    kw = dict(k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    xt = x.reshape(T, M)
+    per = E // n
+
+    def whole():
+        return moe.moe_ffn(x, router, w_up, w_down, w_gate=w_gate, **kw)[0]
+
+    def blocks(dispatch, combine):
+        out = None
+        for b in range(n):
+            e = slice(b * per, (b + 1) * per)
+            part = moe.expert_block(xt, dispatch, combine, w_up[e],
+                                    w_down[e], w_gate[e], first_expert=b * per)
+            out = part if out is None else out + part
+        return out
+
+    with torch.inference_mode():
+        with recorded_routing() as calls:
+            ref = whole().reshape(T, M)
+            dispatch, combine, _ = moe.route(x, router, **kw)
+        got = blocks(dispatch, combine)
+        same = torch.equal(calls[0][0], calls[1][0])
+        d = (got.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        whole_ms = device_ms(whole, reps=5)
+        blocks_ms = device_ms(lambda: blocks(dispatch, combine), reps=5)
+        route_ms = device_ms(lambda: moe.route(x, router, **kw), reps=5)
+    log(f"[ep] one mixtral_8x7b layer (M={M}, F={Fd}, E={E}, top-"
+        f"{cfg.top_k}, capacity factor {cfg.capacity_factor}, T={T}, bf16) "
+        f"as {n} expert blocks of {per} after one routing, against the "
+        f"whole layer: dispatch identical {same}, {dropped(calls[:1])} of "
+        f"{cfg.top_k * T} assignments dropped; max|d|={d:.3e} (tol 2e-2 x "
+        f"max|ref| {top:.3f})")
+    log(f"[ep] device ms on {card} (the card alone, mean of 5): whole layer "
+        f"{whole_ms:.4f}; routing {route_ms:.4f} + {n} blocks {blocks_ms:.4f}"
+        f" ({(route_ms + blocks_ms) / whole_ms:.2f}x the whole layer)")
+    assert same and d <= 2e-2 * top, (same, d, top)
+    del x, router, w_gate, w_up, w_down, dispatch, combine, ref, got, calls
+    torch.cuda.empty_cache()
+
+
 def phase_slice(card: str):
     """Llama-3-8B at full width served by the engine."""
     from ray_tpu_torch.models import LlamaConfig, forward, init_params
@@ -1094,7 +1174,8 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
         tokens = step.token_sharding().cut(tokens)
     if cfg.n_experts:
         with torch.inference_mode():
-            aux = hidden_forward(params, tokens[:, :-1], cfg)[1].item()
+            aux = hidden_forward(params, tokens[:, :-1], cfg,
+                                 mesh=step.mesh)[1].item()
         log(f"[{tag}] MoE load-balancing aux loss at step 0 (summed over "
             f"{cfg.num_layers} layers, 1.0 a layer when balanced): "
             f"{aux:.5f}; the loss adds {step.aux_weight} x it")
@@ -1104,9 +1185,14 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
     # one after the other through the step's one gradient buffer. bf16
     # through 32 layers: both round P to bf16 before PV, in other places
     # and orders, so the loss may differ by 1e-2 and a gradient norm by 5%.
-    loss_f, grads = step.value_and_grad(params, tokens)
+    with recorded_routing() as routed:
+        loss_f, grads = step.value_and_grad(params, tokens)
     norms_f = _grad_norms(grads)
     loss_f = loss_f.item()
+    if mesh and cfg.n_experts:
+        check_dispatch_without_mesh(step, params, tokens, routed, loss_f,
+                                    tag)
+    del routed
     step.cfg = dataclasses.replace(cfg, use_flash=False)
     loss_p, grads = step.value_and_grad(params, tokens)
     norms_p = _grad_norms(grads)
@@ -1207,6 +1293,26 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
     return launches
 
 
+def check_dispatch_without_mesh(step, params, tokens, routed, loss, tag):
+    """Step 0's routing through the mesh (``routed``: the gathered global
+    logits routed in the forward and in the recompute) against the same
+    step without a mesh on the same weights: every dispatch equal."""
+    from ray_tpu_torch.train import CompiledTrainStep
+
+    plain = CompiledTrainStep(step.cfg, learning_rate=1e-3, device=step.device)
+    plain._grads = step.grads  # the same buffers: no second copy
+    with recorded_routing() as without:
+        loss_plain = plain.value_and_grad(params, tokens)[0].item()
+    same = len(routed) == len(without) and all(
+        torch.equal(a[0], b[0]) for a, b in zip(routed, without))
+    log(f"[{tag}] step-0 routing through the mesh against the step without "
+        f"it: {len(routed)} / {len(without)} top_k_routing calls (forward "
+        f"and recompute), dispatch identical {same}, "
+        f"{dropped(routed[:step.cfg.num_layers])} assignments dropped in "
+        f"the forward; loss {loss:.5f} vs {loss_plain:.5f}")
+    assert same, (len(routed), len(without))
+
+
 def compare_without_mesh(step, params, opt_state, tokens, card, tag):
     """The mesh step against the same step without a mesh, on the same
     weights and gradient buffers, in turns (mesh, plain, plain, mesh; 3
@@ -1242,7 +1348,96 @@ def phase_train_moe(card: str):
     cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=4)
     return phase_train(card, cfg, "train-moe",
                        "mixtral_8x7b cut to 4 of 32 layers", measured=3,
-                       short_step=False)
+                       short_step=False, mesh=True)
+
+
+def phase_pipeline(card: str):
+    """The GPipe schedule on the card: ``pipeline_apply`` through
+    ``make_mesh()`` at world size 1 (pp = 1), the 8B's blocks as the stage
+    function (4 layers at full width), B = 4, S = 2048, 4 microbatches,
+    remat on. Forward and backward against the same layers on the whole
+    batch without the pipeline: hidden state within 2e-2 of the largest
+    and gradient norms within 5% (bf16: the microbatches' products differ
+    in shape from the whole batch's), exact launches, both times."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import LlamaConfig, init_params
+    from ray_tpu_torch.models.llama import _layer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=4)
+    L, B, S, n_micro = cfg.num_layers, 4, 2048, 4
+    mesh = make_mesh()
+    layers = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")["layers"]
+    stage = {k: v.unsqueeze(0).requires_grad_() for k, v in layers.items()}
+    positions = torch.arange(S, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(B, S, cfg.hidden_size, generator=gen,
+                    device="cuda").to(cfg.dtype)
+    w = torch.randn(B, S, cfg.hidden_size, generator=gen, device="cuda")
+
+    def stage_fn(p, h):
+        for i in range(L):
+            h, _ = _layer(cfg, positions, h, {k: v[i] for k, v in p.items()})
+        return h
+
+    def run(piped: bool):
+        for v in stage.values():
+            v.grad = None
+        if piped:
+            h = pipeline_apply(stage_fn, stage, x, mesh,
+                               n_microbatches=n_micro, remat=True)
+        else:
+            h = stage_fn({k: v[0] for k, v in stage.items()}, x)
+        ((h.float() * w).sum() / mesh.size()).backward()
+        return h.detach(), {k: torch.linalg.vector_norm(
+            v.grad, dtype=torch.float32).item() for k, v in stage.items()}
+
+    ref, norms_ref = run(False)
+    train_launches(reset=True)
+    got, norms = run(True)
+    torch.cuda.synchronize()
+    launches = train_launches()
+    d = (got.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    rel = {k: abs(norms[k] - norms_ref[k]) / norms_ref[k] for k in norms}
+    worst = max(rel, key=rel.get)
+    per_head = fa.dkv_per_head(
+        B // n_micro, cfg.num_heads, cfg.num_kv_heads, S, S, cfg.dh,
+        dtype=torch.bfloat16, causal=True,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    calls = n_micro * L  # layer calls of the schedule: ticks x layers
+    want = {"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
+            "flash_bwd_dkv": 0 if per_head else calls,
+            "flash_bwd_dkv_per_head": calls if per_head else 0}
+    times = {True: [], False: []}
+    for piped in (True, False, False, True):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(piped)
+            torch.cuda.synchronize()
+            times[piped].append(time.perf_counter() - t)
+    ms = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    log(f"[pipeline] pipeline_apply through {mesh} on a "
+        f"{dist.get_backend()} group of {dist.get_world_size()}: llama3_8b "
+        f"blocks, {L} layers, B={B}, S={S}, {n_micro} microbatches, remat; "
+        f"against the layers on the whole batch: hidden max|d|={d:.3e} (tol "
+        f"2e-2 x max|ref| {top:.3f}); gradient norms of {len(rel)} leaves, "
+        f"worst relative difference {rel[worst]:.3e} at {worst} (tol 5e-2); "
+        f"launches {launches} (want {want})")
+    log(f"[pipeline] forward + backward on {card} (synchronised, median of "
+        f"4, in turns): pipeline {ms[True]:.1f} ms, whole batch without it "
+        f"{ms[False]:.1f} ms ({ms[True] / ms[False]:.3f}x)")
+    assert d <= 2e-2 * top and rel[worst] <= 5e-2, (d, top, rel[worst])
+    assert launches == want, (launches, want)
+    del layers, stage, x, w, ref, got
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return launches
 
 
 def phase_train_breakdown(step, params, opt_state, tokens):
@@ -1438,9 +1633,11 @@ def main() -> int:
     phase_train_parity()
     phase_moe_parity()
     ring = {"ring": phase_ring(card)}
+    phase_ep_blocks(card)
     serve = {"serve": phase_slice(card), "serve_moe": phase_slice_moe(card)}
     train = {"train": phase_train(card, mesh=True),
-             "train_moe": phase_train_moe(card)}
+             "train_moe": phase_train_moe(card),
+             "pipeline": phase_pipeline(card)}
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"

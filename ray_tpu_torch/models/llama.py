@@ -34,9 +34,18 @@ collectives at fixed points (:class:`MeshPlan`):
   are global); attention over a split sequence is the ring
   (``parallel/ring_attention.py``). The loss's sums are all-reduced over
   the data axes.
-Pipeline stages (``pp`` > 1) and MoE layers under a mesh axis > 1 raise
-``NotImplementedError``: under GSPMD JAX routes over the global token axis,
-which local routing would change (ROADMAP Queue 1 item 2).
+- ``ep`` splits the experts of an MoE layer: each rank keeps its
+  [E/ep, M, F/tp] expert slices, routes over the global token axis as
+  GSPMD does for JAX, runs its experts on its tokens and sums the partial
+  outputs over ``ep`` and ``tp`` (``parallel/moe.py``). A rule that splits
+  the tokens over an expert axis raises ``ValueError``.
+- ``pp`` splits the stacked ``layers`` axis: each rank holds L/pp layers
+  of every stacked leaf, and layer i's leaves are broadcast over ``pp``
+  from the rank that holds it (packed into one call, but for leaves of
+  ``collectives.PACK_BYTES`` or more), inside the remat'd region (before
+  the ``fsdp`` gather), as GSPMD moves a layer to where it is needed;
+  the broadcast's backward sums the gradient onto that rank. Every rank
+  computes every layer. The GPipe schedule is ``parallel/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -59,8 +68,8 @@ from .._device import DeviceLike, index_like_jax, resolve_device
 from ..ops.attention import mha_attention
 from ..ops.flash_attention import flash_attention
 from ..parallel import collectives as coll
-from ..parallel.mesh import AXIS_ORDER, mesh_axis_size
-from ..parallel.moe import moe_ffn
+from ..parallel.mesh import mesh_axis_size
+from ..parallel.moe import moe_ffn, weight_axes as moe_weight_axes
 from ..parallel.ring_attention import ring_attention
 from ..parallel.sharding import (
     DEFAULT_RULES,
@@ -193,7 +202,7 @@ def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
 
 # Logical axes whose weight dims stay split (Megatron tensor parallelism):
 # the model computes on the local slice and reduces the result.
-_LOCAL_AXES = frozenset({"heads", "kv_heads", "mlp", "vocab"})
+_LOCAL_AXES = frozenset({"heads", "kv_heads", "mlp", "vocab", "expert"})
 
 
 class MeshPlan:
@@ -205,19 +214,9 @@ class MeshPlan:
 
     def __init__(self, cfg: LlamaConfig, mesh, rules: Sequence[Rule]):
         self.mesh = mesh
+        self.rules = rules
         self.axes = param_logical_axes(cfg)
         self.specs = tree_map(lambda a: logical_to_spec(a, rules), self.axes)
-        if mesh_axis_size(mesh, "pp") > 1:
-            raise NotImplementedError(
-                "pipeline stages (pp > 1) are not ported (ROADMAP Queue 1 "
-                "item 2)")
-        if cfg.n_experts > 0 and any(mesh_axis_size(mesh, a) > 1
-                                     for a in AXIS_ORDER):
-            raise NotImplementedError(
-                "an MoE model under a mesh axis > 1: JAX routes over the "
-                "global token axis, and routing each rank's tokens alone "
-                "would change capacity and drops; expert parallelism is "
-                "ROADMAP Queue 1 item 2")
         lay = self.specs["layers"]
 
         def same(*entries):
@@ -231,6 +230,14 @@ class MeshPlan:
         mlp_dim = 3 if cfg.n_experts > 0 else 2
         self.mlp = same(lay["w_gate"][mlp_dim], lay["w_up"][mlp_dim],
                         lay["w_down"][mlp_dim - 1])
+        self.layers = same(*(s[0] for s in lay.values()))
+        n = 1
+        for a in self.layers:
+            n *= mesh_axis_size(mesh, a)
+        if cfg.num_layers % n:
+            raise ValueError(f"{cfg.num_layers} layers do not split into {n} "
+                             f"pipeline pieces")
+        self.local_layers = cfg.num_layers // n
         self.vocab = same(self.specs["embed"][0], self.specs["lm_head"][1])
         batch, seq = logical_to_spec(("batch", "seq"), rules)
         self.batch, self.seq = entry_axes(batch), entry_axes(seq)
@@ -241,7 +248,21 @@ class MeshPlan:
         if clash:
             raise ValueError(f"mesh axes {sorted(clash)} split both the data "
                              f"and the weights' model-parallel dims")
+        if cfg.n_experts > 0:
+            moe_weight_axes(rules)  # raises on a data axis over the experts
         self.tokens = NamedSharding(mesh, (batch, seq))
+
+    def layer(self, i: int, lp: Layer) -> Layer:
+        """Global layer ``i``'s weights, for this rank's compute: the
+        layer's leaves broadcast over the ``layers`` axes from the rank
+        that holds the layer (:func:`collectives.broadcast_flat`; ``lp``
+        is this rank's local layer ``i % local_layers``, whose value only
+        the holder sends), then each gathered as :meth:`gather` says."""
+        if self.layers:
+            lp = dict(zip(lp, coll.broadcast_flat(
+                lp.values(), self.layers, i // self.local_layers,
+                mesh=self.mesh)))
+        return {k: self.gather(f"layers.{k}", w) for k, w in lp.items()}
 
     def gather(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """Leaf ``name`` ("embed", or "layers.wq" for one layer's slice)
@@ -295,7 +316,8 @@ def leaf_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None, *,
                 shard: Optional[Callable[[str, torch.Tensor],
-                                         torch.Tensor]] = None) -> Params:
+                                         torch.Tensor]] = None,
+                layers: Optional[range] = None) -> Params:
     """Random weights drawn on ``device`` from ``generator`` (a generator
     on that device; default: one seeded with 0). Matrices are normal with
     std fan_in ** -0.5 in ``cfg.dtype``; norms are float32 ones, and the
@@ -305,8 +327,10 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
 
     ``shard(name, tensor)`` keeps a piece of each draw: of one layer's
     slice of a stacked leaf (name "layers.wq"), or of a whole top-level
-    leaf ("embed"). The draws are the same with or without it, so a
-    sharded init holds the slices of the unsharded one."""
+    leaf ("embed"). ``layers`` (a range of layer indices) keeps only those
+    layers of each stacked leaf (a rank's pipeline piece). The draws are
+    the same with or without them, so a sharded init holds the slices of
+    the unsharded one."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -328,7 +352,8 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
             out[i] = draw(shape[1:], fan)
         return out
 
-    layers = {}
+    kept = range(cfg.num_layers) if layers is None else layers
+    stack = {}
     for name, shape in shapes["layers"].items():
         dtype = leaf_dtype(cfg, name)
         out = None
@@ -337,16 +362,18 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 full = torch.ones(shape[1:], dtype=dtype, device=dev)
             else:
                 full = draw(shape[1:], fan_in[name]).to(dtype)
+            if i not in kept:
+                continue
             piece = cut(f"layers.{name}", full)
             if out is None:
-                out = torch.empty((shape[0],) + tuple(piece.shape),
+                out = torch.empty((len(kept),) + tuple(piece.shape),
                                   dtype=dtype, device=dev)
-            out[i] = piece
-        layers[name] = out
+            out[i - kept.start] = piece
+        stack[name] = out
     M = cfg.hidden_size
     return {
         "embed": cut("embed", winit(shapes["embed"], M)).contiguous(),
-        "layers": layers,
+        "layers": stack,
         "final_norm": cut("final_norm", torch.ones(
             (M,), dtype=torch.float32, device=dev)).contiguous(),
         "lm_head": cut("lm_head", winit(shapes["lm_head"], M)).contiguous(),
@@ -456,36 +483,42 @@ def _attention(cfg: LlamaConfig, q, k, v, plan: Optional[MeshPlan] = None):
 
 
 def ffn(cfg: LlamaConfig, h: torch.Tensor, lp: Layer,
-        token_mask: Optional[torch.Tensor] = None):
+        token_mask: Optional[torch.Tensor] = None,
+        plan: Optional[MeshPlan] = None):
     """The block's feed-forward on normed ``h``: (out, aux), the MoE layer
     and its aux loss when ``cfg.n_experts > 0`` (rows with ``token_mask``
     0 routed nowhere), else the dense MLP and None. No MoE product is
     named, so the "mlp" remat policy saves nothing in MoE layers, as in
-    JAX."""
+    JAX. Under a mesh the output is summed over the MLP's tensor-parallel
+    axes (and for MoE over the expert axes, inside ``moe_ffn``)."""
     if cfg.n_experts > 0:
         return moe_ffn(h, lp["router"], lp["w_up"], lp["w_down"],
                        k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                       w_gate=lp["w_gate"], token_mask=token_mask)
-    return mlp(h, lp), None
+                       w_gate=lp["w_gate"], token_mask=token_mask,
+                       mesh=None if plan is None else plan.mesh,
+                       rules=DEFAULT_RULES if plan is None else plan.rules)
+    out = mlp(h, lp)
+    return (out if plan is None else plan.reduce(out, plan.mlp)), None
 
 
 def _layer(cfg: LlamaConfig, positions, x, lp,
-           plan: Optional[MeshPlan] = None):
+           plan: Optional[MeshPlan] = None, index: int = 0):
     """One transformer block. x [B, S, M]. Returns (x, the MoE aux loss or
-    None for a dense block). Under a mesh ``lp`` holds local shards: the
-    block gathers them, and reduces the attention output and the
-    feed-forward over their tensor-parallel axes."""
+    None for a dense block). Under a mesh ``lp`` holds local shards of
+    this rank's layer ``index % plan.local_layers``: the block fetches
+    global layer ``index`` (:meth:`MeshPlan.layer`), and reduces the
+    attention output and the feed-forward over their tensor-parallel
+    axes."""
     if plan is not None:
-        lp = {k: plan.gather(f"layers.{k}", w) for k, w in lp.items()}
+        lp = plan.layer(index, lp)
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     q = rope(project_heads(h, lp["wq"]), positions, cfg.rope_theta)
     k = rope(project_heads(h, lp["wk"]), positions, cfg.rope_theta)
     v = project_heads(h, lp["wv"])
     attn = project_out(_attention(cfg, q, k, v, plan), lp["wo"])
     x = x + (attn if plan is None else plan.reduce(attn, plan.heads))
-    out, aux = ffn(cfg, rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp)
-    if plan is not None:
-        out = plan.reduce(out, plan.mlp)
+    out, aux = ffn(cfg, rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp,
+                   plan=plan)
     return x + out, aux
 
 
@@ -547,14 +580,16 @@ def scan_chunks(cfg: LlamaConfig) -> Tuple[int, int]:
     return K, cfg.num_layers // K
 
 
-def _run_layers(cfg: LlamaConfig, positions, x, layers: List[Layer],
+def _run_layers(cfg: LlamaConfig, positions, x,
+                layers: List[Tuple[int, Layer]],
                 plan: Optional[MeshPlan] = None):
-    """(x after ``layers``, their MoE aux losses summed, or None when the
-    blocks are dense). The aux leaves a checkpointed chunk as an output,
-    so the router gets its gradient through it."""
+    """Runs ``layers``, (global index, weights) pairs: (x after them,
+    their MoE aux losses summed, or None when the blocks are dense). The
+    aux leaves a checkpointed chunk as an output, so the router gets its
+    gradient through it."""
     auxes = []
-    for lp in layers:
-        x, aux = _layer(cfg, positions, x, lp, plan)
+    for i, lp in layers:
+        x, aux = _layer(cfg, positions, x, lp, plan, i)
         if aux is not None:
             auxes.append(aux)
     return x, (sum(auxes) if auxes else None)
@@ -568,8 +603,9 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     final_norm, moe_aux_loss scalar — 0 for the dense model). ``layers``
     overrides the per-layer weights (default: views of the stacked
     leaves; :func:`trainable_leaves` for a backward pass). Under ``mesh``
-    the params are this rank's shards under ``rules`` and ``tokens`` its
-    [B/(dp*fsdp), S/sp] piece; so is the hidden state it returns.
+    the params are this rank's shards under ``rules`` (its L/pp layers of
+    the stack) and ``tokens`` its [B/(dp*fsdp), S/sp] piece; so is the
+    hidden state it returns.
 
     While autograd records, with ``cfg.remat`` and a policy other than
     "save_all", each run of K layers (K from ``scan_chunk`` under
@@ -584,7 +620,14 @@ def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     if plan is not None:
         positions = positions + plan.seq_offset(S)
     if layers is None:
-        layers = [layer_params(params, i) for i in range(cfg.num_layers)]
+        layers = [layer_params(params, i)
+                  for i in range(next(iter(params["layers"].values()))
+                                 .shape[0])]
+    held = cfg.num_layers if plan is None else plan.local_layers
+    if len(layers) != held:
+        raise ValueError(f"{len(layers)} layers given; this rank holds "
+                         f"{held} of {cfg.num_layers}")
+    layers = [(i, layers[i % held]) for i in range(cfg.num_layers)]
     K = scan_chunks(cfg)[0] if cfg.scan_layers else 1
     remat = (cfg.remat and cfg.remat_policy != "save_all"
              and torch.is_grad_enabled())

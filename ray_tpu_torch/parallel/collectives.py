@@ -189,6 +189,69 @@ def _all_to_all(x, group, n, split_axis, concat_axis):
     return torch.cat(recv.unbind(0), dim=concat_axis)
 
 
+def _segments(xs):
+    """Byte offset of each tensor in one packed buffer (16-byte aligned,
+    so each piece views back as its dtype) and the buffer's length."""
+    offsets, n = [], 0
+    for x in xs:
+        offsets.append(n)
+        n += -(-x.numel() * x.element_size() // 16) * 16
+    return offsets, n
+
+
+def _pack(xs):
+    """The tensors' bytes in one buffer, laid out as :func:`_segments`: a
+    view of a lone tensor that needs no padding, else a copy."""
+    if len(xs) == 1 and xs[0].numel() * xs[0].element_size() % 16 == 0:
+        return xs[0].contiguous().reshape(-1).view(torch.uint8)
+    pieces = []
+    for x in xs:
+        b = x.contiguous().reshape(-1).view(torch.uint8)
+        pieces.append(b)
+        if b.numel() % 16:
+            pieces.append(b.new_zeros(16 - b.numel() % 16))
+    return torch.cat(pieces)
+
+
+class _Broadcast(torch.autograd.Function):
+    """Every rank of ``group`` takes the values of the rank with index
+    ``root``, for several tensors in one call: the root packs their bytes
+    into one buffer, and every rank views its pieces back out. The
+    backward sums each gradient onto the root (JAX's transpose of a masked
+    psum), one reduce for each dtype, and gives the other ranks none."""
+
+    @staticmethod
+    def forward(ctx, group, me, root, *xs):
+        ctx.args = (group, me, root)
+        src = dist.get_global_rank(group, root)
+        if me == root:
+            dist.broadcast(_pack(xs), src, group=group)
+            return xs  # autograd hands out views: the root unpacks nothing
+        offsets, n = _segments(xs)
+        flat = torch.empty(n, dtype=torch.uint8, device=xs[0].device)
+        dist.broadcast(flat, src, group=group)
+        return tuple(
+            flat[o:o + x.numel() * x.element_size()].view(x.dtype).view(
+                x.shape) for x, o in zip(xs, offsets))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, me, root = ctx.args
+        dst = dist.get_global_rank(group, root)
+        by_dtype = {}
+        for i, g in enumerate(gs):
+            by_dtype.setdefault(g.dtype, []).append(i)
+        out = [None] * len(gs)
+        for idx in by_dtype.values():  # the same order on every rank
+            flat = torch.cat([gs[i].reshape(-1) for i in idx])
+            dist.reduce(flat, dst, group=group)
+            if me == root:
+                pieces = flat.split([gs[i].numel() for i in idx])
+                for i, piece in zip(idx, pieces):
+                    out[i] = piece.view(gs[i].shape)
+        return (None, None, None, *out)
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n, split_axis, concat_axis):
@@ -250,13 +313,52 @@ def reducescatter(x: torch.Tensor, axis: AxisName = "dp", *,
     return x
 
 
+def _root_digits(mesh, axis: AxisName, root: int):
+    """(axis, the root's index along it) for each axis, the minor first."""
+    digits = []
+    for a in reversed(_axes(axis)):
+        root, digit = divmod(root, mesh_axis_size(mesh, a))
+        digits.append((a, digit))
+    return digits
+
+
 def broadcast(x: torch.Tensor, axis: AxisName = "dp", root: int = 0, *,
               mesh=None) -> torch.Tensor:
-    """Every rank takes root's value (a sum over the axis of x masked to the
-    root, as in JAX)."""
+    """Every rank takes the value of the rank whose index along the axis is
+    ``root`` (JAX's sum over the axis of x masked to the root, with its
+    gradient: the sum of the ranks' gradients on the root, zeros
+    elsewhere). Over a tuple of axes the minor axis goes first, each from
+    its digit of ``root``."""
+    return broadcast_flat([x], axis, root, mesh=mesh)[0]
+
+
+# A tensor below this many bytes travels packed with the others: copying
+# it into the packed buffer (~0.17 ms for 256 MB at 3 TB/s, read and
+# written) costs less than a collective call of its own on the host
+# (0.1-0.3 ms, PERF.md section 6); a larger one travels alone, uncopied.
+PACK_BYTES = 1 << 28
+
+
+def broadcast_flat(xs: Sequence[torch.Tensor], axis: AxisName = "dp",
+                   root: int = 0, *, mesh=None) -> Tuple[torch.Tensor, ...]:
+    """:func:`broadcast` of every tensor of ``xs`` (which may differ in
+    shape and dtype), for each axis in one collective call for all the
+    tensors under ``PACK_BYTES`` (their bytes packed into one buffer) and
+    one for each larger tensor; each call's backward reduces one buffer
+    for each dtype of its gradients."""
     mesh = _mesh(mesh)
-    off_root = torch.tensor(axis_index(axis, mesh=mesh) != root)
-    return allreduce(x.masked_fill(off_root, 0), axis, mesh=mesh)
+    out = list(xs)
+    small = [i for i, x in enumerate(out)
+             if x.numel() * x.element_size() < PACK_BYTES]
+    calls = [small] + [[i] for i in range(len(out)) if i not in small]
+    for idx in filter(None, calls):
+        ys = tuple(out[i] for i in idx)
+        for a, digit in _root_digits(mesh, axis, root):
+            ys = _Broadcast.apply(mesh.get_group(a), mesh.get_local_rank(a),
+                                  digit, *ys)
+        for i, y in zip(idx, ys):
+            out[i] = y
+    return tuple(out)
 
 
 def ppermute(x: torch.Tensor, axis: AxisName, perm, *,

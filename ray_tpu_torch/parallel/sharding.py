@@ -154,8 +154,10 @@ def with_logical_constraint(
     unchanged. In JAX this is a sharding constraint that XLA satisfies by
     resharding; here every tensor is already this rank's local piece and
     nothing moves: the check is that ``x`` has one dim per logical axis
-    and, given ``global_shape``, the local shape of that global tensor.
-    Without a mesh it returns ``x`` unchecked, as JAX does."""
+    and, given ``global_shape``, the local shape of that global tensor
+    (the MoE layer checks its expert buffers, [E/ep, C, M] of the global
+    [E, C, M], against ("expert", None, None) this way). Without a mesh it
+    returns ``x`` unchecked, as JAX does."""
     if mesh is None:
         return x
     if x.dim() != len(logical_axes):

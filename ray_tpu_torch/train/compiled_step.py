@@ -26,10 +26,15 @@ and runs the same code, collectives included, at any world size (over
 groups of one at world size 1). Each rank's backward starts from the loss
 divided by the world size: the collectives' backward passes sum the
 gradient over the ranks, so a gradient arrives reduce-scattered over
-``fsdp`` (the backward of the per-layer all-gather) and is then all-reduced
-over every mesh axis its leaf is replicated on (``dp``, ``sp``, and ``tp``
-for the norms), which gives every rank its slice of the single-device
-gradient.
+``fsdp`` (the backward of the per-layer all-gather) and summed onto the
+rank that holds its layer over ``pp`` (the backward of the layer's
+broadcast), and is then all-reduced over every mesh axis its leaf is
+replicated on (``dp``, ``sp``, and ``tp`` for the norms; for the MoE router
+also ``ep``), which gives every rank its slice of the single-device
+gradient. Every data rank computes the same MoE aux loss from the global
+means; its gradient reaches each rank's router logits through the logits'
+gather, whose backward sums over the ranks, so with the loss divided by
+the world size it counts once.
 """
 
 from __future__ import annotations
@@ -134,7 +139,7 @@ class CompiledTrainStep:
         ``generator`` (see ``init_params``), with the gradient buffers.
         Under a mesh every rank draws the same stream and keeps its shards:
         the slices of the single-device init from the same seed."""
-        shard = None
+        shard = layers = None
         if self.plan is not None:
             def shard(name, full):
                 spec = self.plan.specs
@@ -144,7 +149,12 @@ class CompiledTrainStep:
                     spec = spec[1:]  # one layer's slice
                 return NamedSharding(self.mesh, prune_spec(
                     self.mesh, spec)).local(full)
-        params = init_params(self.cfg, generator, self.device, shard=shard)
+
+            n = self.plan.local_layers
+            first = NamedSharding(self.mesh, (self.plan.layers,)).coords(0)[0]
+            layers = range(first * n, (first + 1) * n)
+        params = init_params(self.cfg, generator, self.device, shard=shard,
+                             layers=layers)
         self._grads = zeros_like_tree(params)
         return params, self.optimizer.init(params)
 

@@ -446,10 +446,13 @@ def test_ring_block_path_matches_the_plain_ring(cuda, n, dtype):
             assert err <= 1e-2 * want.abs().max().item(), err
 
 
-def test_world_size_one_mesh_step_matches_the_plain_step(cuda):
+@pytest.mark.parametrize("n_experts", [0, 8], ids=["dense", "moe"])
+def test_world_size_one_mesh_step_matches_the_plain_step(cuda, n_experts):
     """CompiledTrainStep through make_mesh() (NCCL, a world of one; every
     collective over a group of one) against the same step without a mesh,
-    float32, TF32 off: two steps' losses and gradients within 1e-6."""
+    float32, TF32 off: two steps' losses and gradients within 1e-6; for
+    the Mixtral-style model (8 experts, top-2) the routing goes through
+    the gathered global logits and the ep/tp reduce."""
     import torch.distributed as dist
 
     from ray_tpu_torch.models import LlamaConfig
@@ -459,7 +462,8 @@ def test_world_size_one_mesh_step_matches_the_plain_step(cuda):
 
     cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024,
                       num_layers=2, num_heads=4, num_kv_heads=2,
-                      rope_theta=10_000.0, dtype=torch.float32, loss_chunk=64)
+                      rope_theta=10_000.0, dtype=torch.float32, loss_chunk=64,
+                      n_experts=n_experts)
     tokens = torch.tensor(np.random.RandomState(4).randint(0, 256, (1, 257)),
                           dtype=torch.int32, device=cuda)
     started = not dist.is_initialized()
@@ -477,6 +481,51 @@ def test_world_size_one_mesh_step_matches_the_plain_step(cuda):
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ep_blocks_sum_to_the_whole_layer(cuda, dtype):
+    """An MoE layer (8 experts, top-2, capacity factor 1.25) routed once
+    and run as 4 expert blocks of 2, as the ranks of an ep = 4 world run
+    it, sums to the whole layer, with the same dispatch (the router is
+    float32 either way)."""
+    from ray_tpu_torch.parallel import moe
+
+    rng = np.random.RandomState(11)
+    T, M, Fd, E = 256, 256, 512, 8
+    x = _randn(rng, (1, T, M), dtype, cuda)
+    router = torch.from_numpy(rng.randn(M, E).astype(np.float32) * 0.3).to(
+        cuda)
+    w_gate, w_up = (_randn(rng, (E, M, Fd), dtype, cuda) * M ** -0.5
+                    for _ in range(2))
+    w_down = _randn(rng, (E, Fd, M), dtype, cuda) * Fd ** -0.5
+    whole, _ = moe.moe_ffn(x, router, w_up, w_down, w_gate=w_gate)
+    dispatch, combine, _ = moe.route(x, router)
+    logits = x.reshape(T, M).float() @ router
+    assert torch.equal(dispatch, moe.top_k_routing(
+        logits, 2, int(1.25 * 2 * T / E))[0])
+    got = sum(moe.expert_block(x.reshape(T, M), dispatch, combine,
+                               w_up[e:e + 2], w_down[e:e + 2],
+                               w_gate[e:e + 2], first_expert=e)
+              for e in range(0, E, 2))
+    ref = whole.reshape(T, M).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), err
+
+
+def test_dryrun_multichip_runs_on_the_cards(cuda):
+    """The dry run with no device given runs on the cards, over NCCL, one
+    process a card (at one card, the dense step alone)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    n = (dist.get_world_size() if dist.is_initialized()
+         else torch.cuda.device_count())
+    out = dryrun_multichip(n)
+    assert all(v is None or np.isfinite(v) for v in out.values()), out
+    assert out["dense"] > 0 and ("moe" in out) == (n >= 2), out
 
 
 def test_paged_kernel_layer_form_and_refusals(cuda):

@@ -144,6 +144,17 @@ def test_moe_params_carry_over_leaf_for_leaf():
     assert torch.equal(router, router.to(torch.bfloat16).float())
 
 
+def test_a_layer_stack_of_the_wrong_depth_raises():
+    """A stack that holds fewer layers than the config names raises
+    instead of running some layers twice."""
+    from ray_tpu_torch.models.llama import hidden_forward
+
+    cfg = LlamaConfig.tiny()
+    params = init_params(cfg, device="cpu", layers=range(cfg.num_layers - 1))
+    with pytest.raises(ValueError, match="layers given"):
+        hidden_forward(params, torch.zeros(1, 4, dtype=torch.long), cfg)
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from ray_tpu_torch.models.generation import generate
     from ray_tpu_torch.serve.llm import LLMDeployment, LLMEngine

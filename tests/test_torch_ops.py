@@ -218,6 +218,8 @@ def fresh_import(tmp_path_factory):
         "import ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
         "import ray_tpu_torch.parallel.collectives\n"
         "import ray_tpu_torch.parallel.ring_attention\n"
+        "import ray_tpu_torch.parallel.pipeline\n"
+        "import ray_tpu_torch.parallel.dryrun\n"
         "from ray_tpu_torch.ops import _build, flash_attention as fa\n"
         "from ray_tpu_torch.ops import paged_attention as pa\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

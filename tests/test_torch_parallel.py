@@ -141,6 +141,7 @@ COLL = {
     "allreduce_dp_sp": (("dp", "sp"), True),
     "allgather_dp_sp": (("dp", "sp"), True),
     "reducescatter_dp_sp": (("dp", "sp"), True),
+    "two_axis_broadcast": (("dp", "sp"), True),
 }
 PERM = ((0, 2), (2, 0), (1, 3))
 
@@ -167,6 +168,7 @@ def _port_coll(name, x, mesh):
                                                mesh=mesh),
         "reducescatter_dp_sp": lambda: C.reducescatter(x, a, scatter_dim=1,
                                                        mesh=mesh),
+        "two_axis_broadcast": lambda: C.broadcast(x, a, root=2, mesh=mesh),
     }[name]()
 
 
@@ -292,21 +294,69 @@ def task_sharding(rank):
     return out
 
 
-def task_unported_meshes_raise(rank):
-    """MoE under any mesh axis > 1, and pipeline stages (pp > 1), raise."""
+def task_data_axis_on_experts(rank):
+    """A rule that splits the experts over an axis the tokens split over
+    raises ValueError, in the model and in ``moe_ffn``; the meshes that
+    the port once refused (MoE under an axis > 1, pp > 1) now build."""
+    from ray_tpu_torch.parallel.moe import moe_ffn
     from ray_tpu_torch.train import CompiledTrainStep
 
+    rules = tuple((a, "dp") if a == "expert" else (a, m)
+                  for a, m in DEFAULT_RULES)
+    mesh = cpu_mesh(dp=WORLD)
+    x = torch.zeros(1, 2, 8)
     raised = []
+    for build in (
+            lambda: CompiledTrainStep(LlamaConfig.tiny(moe=True), mesh=mesh,
+                                      rules=rules),
+            lambda: moe_ffn(x, torch.zeros(8, 4), torch.zeros(1, 8, 4),
+                            torch.zeros(1, 4, 8), mesh=mesh, rules=rules)):
+        try:
+            build()
+            raised.append(None)
+        except ValueError as e:
+            raised.append(str(e))
     for moe, sizes in ((True, {"dp": WORLD}), (True, {"dp": 1, "fsdp": 2,
                                                        "tp": 2}),
                        (False, {"dp": 1, "pp": 2, "tp": 2})):
-        try:
-            CompiledTrainStep(LlamaConfig.tiny(moe=moe),
-                              mesh=cpu_mesh(**sizes))
-            raised.append(None)
-        except NotImplementedError as e:
-            raised.append(str(e))
+        CompiledTrainStep(LlamaConfig.tiny(moe=moe), mesh=cpu_mesh(**sizes))
     return raised
+
+
+def task_flat_broadcast(rank):
+    """``broadcast_flat`` of tensors of two dtypes and odd byte counts
+    over (dp, sp) from root 2, all packed ("flat") and with the 40- and
+    64-byte tensors over the packing limit ("split": one alone with
+    padding, one alone uncopied), beside ``broadcast`` of each: outputs
+    and gradients."""
+    mesh = cpu_mesh(dp=2, sp=2)
+    rng = np.random.RandomState(300 + rank)
+    xs = [torch.from_numpy(rng.randn(*shape).astype(dtype))
+          for shape, dtype in (((2, 3), np.float32), ((5,), np.float64),
+                               ((3,), np.float32), ((8,), np.float64))]
+    ws = [torch.from_numpy(np.random.RandomState(400 + rank).randn(
+        *x.shape).astype(x.numpy().dtype)) for x in xs]
+
+    def flat(v, limit):
+        default, C.PACK_BYTES = C.PACK_BYTES, limit
+        try:
+            return C.broadcast_flat(v, ("dp", "sp"), root=2, mesh=mesh)
+        finally:
+            C.PACK_BYTES = default
+
+    out = {}
+    for name, fn in (
+            ("flat", lambda v: flat(v, C.PACK_BYTES)),
+            ("split", lambda v: flat(v, 32)),
+            ("each", lambda v: [C.broadcast(t, ("dp", "sp"), root=2,
+                                            mesh=mesh) for t in v])):
+        v = [x.clone().requires_grad_() for x in xs]
+        ys = fn(v)
+        sum((y * w).sum() for y, w in zip(ys, ws)).backward()
+        out[name] = ([y.detach().numpy() for y in ys],
+                     [np.zeros_like(t.detach().numpy()) if t.grad is None
+                      else t.grad.numpy() for t in v])
+    return out
 
 
 def task_collective_group(rank):
@@ -322,8 +372,9 @@ RANK_TASKS = {
     "collectives": task_collectives,
     "attention": task_attention,
     "sharding": task_sharding,
-    "unported": task_unported_meshes_raise,
+    "expert_rules": task_data_axis_on_experts,
     "collective_group": task_collective_group,
+    "flat_broadcast": task_flat_broadcast,
 }
 
 MESHES = {"dp2_fsdp2": dict(dp=2, fsdp=2), "sp2_tp2": dict(dp=1, sp=2, tp=2),
@@ -378,6 +429,7 @@ def _jax_coll(name):
         "allgather_dp_sp": lambda x: J.allgather(x, axis, gather_dim=1),
         "reducescatter_dp_sp": lambda x: J.reducescatter(x, axis,
                                                          scatter_dim=1),
+        "two_axis_broadcast": lambda x: J.broadcast(x, axis, root=2),
     }[name]
     f = jax.shard_map(fn, mesh=mesh, in_specs=P(axis), out_specs=P(axis),
                       check_vma=False)
@@ -498,11 +550,24 @@ def test_sharding_on_the_world_matches_jax(world):
 
 
 def test_moe_and_pipeline_under_a_mesh_raise(world):
-    """An MoE model under a mesh axis > 1 raises rather than routing each
-    rank's tokens alone; so do pipeline stages (pp > 1)."""
-    for raised in ranks(world, "unported"):
-        assert all(r and "Queue 1 item 2" in r for r in raised), raised
-        assert "MoE" in raised[0] and "pipeline" in raised[2], raised
+    """The one raise left of MoE and pipelines under a mesh: a rule that
+    puts a data axis on the experts raises ValueError (a deliberate
+    difference: JAX would move the tokens with an all-to-all), in the
+    model and in moe_ffn. MoE under any axis > 1 and pp > 1 build."""
+    for raised in ranks(world, "expert_rules"):
+        for r in raised:
+            assert r and "['dp']" in r and "experts" in r, raised
+
+
+def test_flat_broadcast_matches_one_broadcast_each(world):
+    """Packed calls carry every tensor as its own broadcast does, and the
+    backward reduces each gradient (per dtype) onto the root."""
+    for r, got in enumerate(ranks(world, "flat_broadcast")):
+        for name in ("flat", "split"):
+            for a, b in zip(got[name][0] + got[name][1],
+                            got["each"][0] + got["each"][1]):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b, err_msg=f"{name} {r}")
 
 
 def test_collective_group_barrier_and_broadcast(world):
