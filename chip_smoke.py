@@ -80,6 +80,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
      backward against the same 4 layers on the whole batch without the
      pipeline (hidden state within 2e-2 of the largest, gradient norms
      within 5%), exact launches, and both times in turns;
+  8. phase 5's Llama-3-8B weights (14.5 GB of bf16) committed with
+     Checkpoint.from_pytree under build/smoke_ckpt (its free space checked
+     first), served by LLMDeployment(checkpoint_path=) on phase 5's six
+     requests with the launch counters reset: greedy tokens identical to
+     phase 5's, save and load GB/s; the directory is deleted;
+  8b. llama3_8b cut to 2 layers at full width, B = 1, S = 2048, through
+     make_mesh() at world size 1: one step, the training state saved
+     sharded under the mesh, restored into a fresh CompiledTrainStep, two
+     more steps, against three steps straight from the same seed (losses
+     and weights identical, else within 1e-6), with the launches of the
+     restore and the two steps;
+  9. ResNet-18: two float32 steps at B = 8, card against CPU from the same
+     weights (TF32 off; logits, batch statistics, loss within 1e-3), then
+     resnet18() in bf16 at the CIFAR-10 geometry (B = 128, 32x32x3,
+     synthetic data from a seed), 8 Adam(1e-2) steps (the loss falls;
+     ms/step, images/s, a profiled step), committed and scored by
+     TorchPredictor on the card (equal to the eval logits bitwise);
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -925,27 +942,36 @@ def phase_slice(card: str):
         f"{lp.abs().max().item():.2f}")
     assert torch.isfinite(lf).all() and d <= tol, d
 
-    launches = serve_six(cfg, params, card, "slice", rng)
+    launches, prompts, outs = serve_six(cfg, params, card, "slice", rng)
     phase_breakdown(cfg, params, card)
+    serve_ckpt = phase_serve_checkpoint(cfg, params, card, prompts, outs)
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, serve_ckpt
 
 
-def serve_six(cfg, params, card: str, tag: str, rng) -> dict:
+SERVE_ENGINE = dict(max_batch=4, max_len=512, page_size=16)
+
+
+def serve_six(cfg, params, card: str, tag: str, rng, eng=None,
+              prompts=None):
     """Phase 5's run: LLMEngine(max_batch=4, max_len=512, page_size=16)
     serving six concurrent requests, more than the slots, with the serving
-    kernels' launch counters reset just before and read just after."""
+    kernels' launch counters reset just before and read just after.
+    ``eng`` is an engine built elsewhere (phase 8's, inside a deployment)
+    and ``prompts`` phase 5's, both drawn from ``rng`` if not given.
+    Returns (launches, prompts, the six outputs)."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    eng = LLMEngine(cfg, params, max_batch=4, max_len=512, page_size=16,
-                    device="cuda")
+    if eng is None:
+        eng = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
     eng.generate(rng.randint(0, cfg.vocab_size, 40).tolist(), 2)  # warm-up
     lens = [40, 100, 300, 60, 130, 200]
     new = [16, 32, 24, 32, 16, 24]
-    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
+    if prompts is None:
+        prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
     steps0 = eng.stats()["decode_steps"]
     times = [[] for _ in lens]
 
@@ -999,7 +1025,7 @@ def serve_six(cfg, params, card: str, tag: str, rng) -> dict:
     log(f"[{tag}] launches on the main path: {launches} ({L} layers: "
         f"flash {launches['flash_fwd'] / L:.0f} prefills with bucket >= 128,"
         f" paged {launches['paged_decode'] / L:.0f} decode steps)")
-    return launches
+    return launches, prompts, outs
 
 
 def phase_slice_moe(card: str):
@@ -1097,7 +1123,7 @@ def phase_slice_moe(card: str):
     assert clean.any() and d <= tol, (int(clean.sum()), d)
     del x, lf, lpl, calls, differ
 
-    launches = serve_six(cfg, params, card, "slice-moe", rng)
+    launches = serve_six(cfg, params, card, "slice-moe", rng)[0]
     phase_breakdown(cfg, params, card)
     del params
     torch.cuda.empty_cache()
@@ -1515,12 +1541,367 @@ def _moe_ranges(prof, steps: int):
             - n["moe.experts"]}
 
 
+# ------------------------------------------- checkpoints and ResNet (8-9)
+
+def ckpt_dir(name: str, need_bytes: int, card: str) -> str:
+    """A fresh directory under the checkout's build/ for a checkpoint of
+    ``need_bytes``; raises if the filesystem has not that much free, with
+    a quarter and 2 GB to spare."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_ckpt")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, name)
+    shutil.rmtree(path, ignore_errors=True)
+    free = shutil.disk_usage(root).free
+    want = int(need_bytes * 1.25) + 2 * 10**9
+    log(f"[ckpt] {path}: {free / 1e9:.1f} GB free on its filesystem, "
+        f"{need_bytes / 1e9:.2f} GB to write, on {card}")
+    if free < want:
+        raise RuntimeError(f"{root} has {free / 1e9:.1f} GB free; the "
+                           f"checkpoint needs {want / 1e9:.1f} GB")
+    return path
+
+
+def tree_tensors(tree):
+    """Every tensor of a tree of dicts, lists, tuples and AdamStates, in a
+    fixed order."""
+    from ray_tpu_torch.train import AdamState
+
+    if isinstance(tree, AdamState):
+        tree = {"count": tree.count, "mu": tree.mu, "nu": tree.nu}
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
+
+
+def phase_serve_checkpoint(cfg, params, card: str, prompts, outs5):
+    """Phase 8: phase 5's Llama-3-8B weights (full width and depth) saved
+    with Checkpoint.from_pytree, served by LLMDeployment(checkpoint_path=)
+    on phase 5's six requests with the launch counters reset: greedy tokens
+    identical to phase 5's, flash and paged launches above zero."""
+    import shutil
+
+    from ray_tpu_torch.serve.llm import LLMDeployment
+    from ray_tpu_torch.train import Checkpoint
+
+    nbytes = tree_bytes(params)
+    path = ckpt_dir("llama3_8b", nbytes, card)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck = Checkpoint.from_pytree(params, path)
+        save_s = time.perf_counter() - t0
+        files = ck.manifest()["files"]
+        on_disk = sum(files.values())
+        log(f"[serve-ckpt] saved {nbytes / 1e9:.3f} GB of bf16 weights "
+            f"({len(files)} files, {on_disk / 1e9:.3f} GB on disk, "
+            f"committed {ck.is_committed()}) in {save_s:.2f} s: "
+            f"{nbytes / save_s / 1e9:.3f} GB/s save, copies to the host, "
+            f"torch.save and fsyncs included, on {card}")
+        t0 = time.perf_counter()
+        dep = LLMDeployment(cfg, checkpoint_path=path, device="cuda",
+                            **SERVE_ENGINE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log(f"[serve-ckpt] LLMDeployment(checkpoint_path=) built in "
+            f"{load_s:.2f} s: {nbytes / load_s / 1e9:.3f} GB/s load (read, "
+            f"copy to the card and the engine's set-up), on {card}")
+        same = [torch.equal(a, b) for a, b in
+                zip(tree_tensors(dep.engine.params), tree_tensors(params))]
+        assert len(same) == 12 and all(same), same
+        rng = np.random.RandomState(0)
+        launches, _, outs = serve_six(cfg, None, card, "serve-ckpt", rng,
+                                      eng=dep.engine, prompts=prompts)
+        differ = [i for i, (a, b) in enumerate(zip(outs, outs5)) if a != b]
+        log(f"[serve-ckpt] greedy tokens of the six requests against phase "
+            f"5's: {6 - len(differ)} of 6 identical (differ: {differ}); "
+            f"weights restored bitwise, on {card}")
+        assert not differ, (differ, outs, outs5)
+        assert launches["flash_fwd"] > 0 and launches["paged_decode"] > 0
+        del dep
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_resume(card: str):
+    """Phase 8b: llama3_8b cut to 2 layers at full width, B = 1, S = 2048,
+    through make_mesh() at world size 1: one step, the state saved sharded
+    under the mesh, restored into a fresh CompiledTrainStep, two more steps;
+    against three steps straight from the same seed."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train import Checkpoint, CompiledTrainStep
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2)
+    B, S = 1, 2048
+    mesh = make_mesh()
+    rs = np.random.RandomState(2)
+    toks = [torch.tensor(rs.randint(0, cfg.vocab_size, (B, S + 1)),
+                         dtype=torch.int32, device="cuda") for _ in range(3)]
+
+    def fresh():
+        step = CompiledTrainStep(cfg, learning_rate=1e-3, mesh=mesh)
+        return (step, *step.init(
+            torch.Generator(device="cuda").manual_seed(0)))
+
+    step, params, opt = fresh()
+    straight = [step(params, opt, step.token_sharding().cut(t))[2].item()
+                for t in toks]
+    step1, p1, o1 = fresh()
+    first = step1(p1, o1, step1.token_sharding().cut(toks[0]))[2].item()
+    state = {"params": p1, "opt_state": o1, "step": 1}
+    nbytes = tree_bytes(state)
+    path = ckpt_dir("resume", nbytes, card)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Checkpoint.from_pytree(state, path, step=1, mesh=mesh,
+                               logical_axes=step1.state_logical_axes())
+        save_s = time.perf_counter() - t0
+        del state, p1, o1, step1
+        torch.cuda.empty_cache()
+        step2 = CompiledTrainStep(cfg, learning_rate=1e-3, mesh=mesh)
+        train_launches(reset=True)  # the main path: restore and 2 steps
+        t0 = time.perf_counter()
+        got = Checkpoint(path).as_pytree(
+            mesh=mesh, logical_axes=step2.state_logical_axes())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        resumed = [step2(got["params"], got["opt_state"],
+                         step2.token_sharding().cut(t))[2].item()
+                   for t in toks[1:]]
+        launches = train_launches()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    log(f"[resume] {cfg.num_layers}-layer llama3_8b state ({nbytes / 1e9:.3f}"
+        f" GB: bf16 params and moments) saved sharded under {mesh} in "
+        f"{save_s:.2f} s ({nbytes / save_s / 1e9:.3f} GB/s), restored onto "
+        f"the card in {load_s:.2f} s ({nbytes / load_s / 1e9:.3f} GB/s), on "
+        f"{card}")
+    losses = [first] + resumed
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, straight))
+    worst = 0.0
+    for a, b in zip(tree_tensors({"params": got["params"],
+                                  "opt_state": got["opt_state"]}),
+                    tree_tensors({"params": params, "opt_state": opt})):
+        top = b.abs().max().item()
+        if top:
+            worst = max(worst, (a.float() - b.float()).abs().max().item()
+                        / top)
+    exact = losses == straight and worst == 0.0
+    log(f"[resume] losses 1 step + save/restore + 2 steps {losses} against 3"
+        f" steps straight {straight}: {'identical' if exact else 'differ'}"
+        f"; worst loss relative difference {loss_rel:.3e}, worst weight or "
+        f"moment max|d| / max|ref| {worst:.3e} (tol 1e-6 where not "
+        f"identical); launches in the restore and 2 steps {launches}; on "
+        f"{card}")
+    assert loss_rel <= 1e-6 and worst <= 1e-6, (loss_rel, worst)
+    assert got["step"] == 1 and got["opt_state"].count == 3
+    assert launches["flash_bwd_dq"] > 0, launches
+    assert launches["flash_bwd_dkv_per_head"] > 0, launches
+    del got, params, opt, step, step2
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return launches
+
+
+def phase_resnet(card: str):
+    """Phase 9: ResNet-18, card against CPU in float32 (TF32 off), then
+    trained in bf16 at the CIFAR-10 geometry, committed, and scored by
+    TorchPredictor on the card."""
+    import shutil
+
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.train import AdamState, AdamW, Checkpoint
+    from ray_tpu_torch.train import TorchPredictor
+
+    def moved(tree, device):  # a copy of a tree of dicts and AdamStates
+        if isinstance(tree, AdamState):
+            return AdamState(tree.count, moved(tree.mu, device),
+                             moved(tree.nu, device))
+        if isinstance(tree, dict):
+            return {k: moved(v, device) for k, v in tree.items()}
+        if torch.is_tensor(tree):
+            return tree.to(device, copy=True)
+        return tree
+
+    class Recorded:  # an optimizer keeping CPU copies of what it is given
+        def __init__(self, tx):
+            self.tx = tx
+
+        def update(self, params, grads, opt):
+            self.given = (moved(params, "cpu"), moved(grads, "cpu"),
+                          moved(opt, "cpu"))
+            return self.tx.update(params, grads, opt)
+
+    def worst_of(got, want) -> float:  # max over leaves of max|d| / max|ref|
+        out = 0.0
+        for a, b in zip(tree_tensors(got), tree_tensors(want), strict=True):
+            d = (a.detach().cpu() - b).abs().max().item()
+            top = b.abs().max().item()
+            out = max(out, d / top if top else (0.0 if d == 0 else np.inf))
+        return out
+
+    # 1. Two train_steps at B = 8 in float32 (TF32 off) on the card, its
+    # state carried from the first step into the second. Before each step
+    # the CPU takes a copy of the card's state and steps from it, so that
+    # each step is held from the same weights: train-mode logits, new batch
+    # statistics and the loss within 1e-3 of each tensor's max|ref|, and
+    # the card's fused AdamW (params and both moments) within 1e-5 of the
+    # CPU's AdamW run on the card's own gradients and state (and float32
+    # betas, below). Every gradient (cuDNN's channels-last backward) is
+    # held within 1e-3 in the first step, from the drawn weights; in the
+    # second it is printed: one Adam(1e-2) step at B = 8 more than triples
+    # the loss, and there the float32 gradient moves by more than 1e-3 of
+    # its max under another order of summation (cuDNN's, or PyTorch's own
+    # CUDA convolutions, against the CPU's). The two devices' trajectories are not held together:
+    # Adam's first step is lr * sign(g), so a rounding difference flips the
+    # elements whose gradient is near 0. The second norms' zero scales are
+    # drawn nonzero, so every convolution reaches the output.
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = resnet.resnet18(num_classes=10, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    adam = AdamW(1e-2, weight_decay=0.0)
+    # The CUDA fused AdamW rounds the betas to float32 (1 - b2 is then off
+    # by 1.29e-5 of itself); the CPU's update it is held to takes the same.
+    adam32 = AdamW(1e-2, b1=float(np.float32(0.9)),
+                   b2=float(np.float32(0.999)), weight_decay=0.0)
+    cpu = resnet.create_train_state(model, gen, (8, 32, 32, 3), adam, "cpu")
+    for name, block, _ch in model.blocks():
+        cpu["params"][name]["norm2"]["scale"] = 1 + 0.1 * torch.randn(
+            block.filters, generator=gen)
+    card_state = moved(cpu, "cuda")
+    rs = np.random.RandomState(9)
+    steps = []
+    for i in range(2):
+        x = torch.from_numpy(rs.randn(8, 32, 32, 3).astype(np.float32))
+        y = torch.from_numpy(rs.randint(0, 10, (8,)))
+        ref = moved(card_state, "cpu")
+        with torch.no_grad():
+            want = model.apply(ref, x)[0]
+            got = model.apply(card_state, x.cuda())[0]
+        on_cpu, on_card = Recorded(adam), Recorded(adam)
+        loss_c = resnet.train_step(model, ref, x, y, on_cpu).item()
+        loss_g = resnet.train_step(model, card_state, x.cuda(), y.cuda(),
+                                   on_card).item()
+        params, grads, opt = on_card.given
+        adam32.update(params, grads, opt)  # the CPU's, on the card's grads
+        steps.append({
+            "loss_cpu": loss_c,
+            "logits": worst_of(got, want),
+            "loss": abs(loss_g - loss_c) / abs(loss_c),
+            "batch_stats": worst_of(card_state["batch_stats"],
+                                    ref["batch_stats"]),
+            "grads": worst_of(grads, on_cpu.given[1]),
+            "adamw_params": worst_of(card_state["params"], params),
+            "adamw_mu": worst_of(card_state["opt_state"].mu, opt.mu),
+            "adamw_nu": worst_of(card_state["opt_state"].nu, opt.nu)})
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    for i, d in enumerate(steps):
+        loss_c = d.pop("loss_cpu")
+        log(f"[resnet] resnet18 float32 B=8, train_step {i + 1} of 2 on the "
+            f"card, state carried, against the CPU from the card's weights "
+            f"(TF32 off; CPU loss {loss_c:.6f}): max|d| / max|ref| {d} (tol "
+            f"1e-3, grads "
+            f"{'1e-3' if i == 0 else 'printed only'}; adamw_* 1e-5), on "
+            f"{card}")
+        held = ["logits", "loss", "batch_stats"] + (["grads"] if i == 0
+                                                     else [])
+        assert all(d[k] <= 1e-3 for k in held), (i, d)
+        assert all(d[k] <= 1e-5 for k in d if k.startswith("adamw")), (i, d)
+    assert card_state["step"] == 2 and card_state["opt_state"].count == 2
+    del cpu, card_state, ref
+
+    # 2. resnet18() in bf16 at the CIFAR-10 geometry, synthetic data from a
+    # seed, 8 steps of Adam(1e-2): the loss must fall.
+    model = resnet.resnet18()
+    B = 128
+    state = resnet.create_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0),
+        (B, 32, 32, 3), adam, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(B, 32, 32, 3, generator=g, device="cuda")
+    y = torch.randint(0, 10, (B,), generator=g, device="cuda")
+    losses, times = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(resnet.train_step(model, state, x, y, adam).item())
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times[2:])) * 1e3
+    log(f"[resnet] resnet18 bf16 B={B} 32x32x3, 8 steps of Adam(1e-2): "
+        f"losses {[round(v, 4) for v in losses]}; {ms:.2f} ms/step (median "
+        f"of steps 3-8, synchronised; all "
+        f"{[round(t * 1e3, 1) for t in times]}), {B / ms * 1e3:.0f} "
+        f"images/s, on {card}")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        resnet.train_step(model, state, x, y, adam)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _report(f"resnet18 train step B={B}", wall, _device_kernels(prof, 1),
+            kinds=RESNET_KINDS, top=8)
+    _host_report(prof)
+
+    # 3. Commit {"params", "batch_stats"}, restore it with TorchPredictor on
+    # the card: its predictions equal the model's eval logits bitwise.
+    variables = {"params": state["params"],
+                 "batch_stats": state["batch_stats"]}
+    path = ckpt_dir("resnet18", tree_bytes(variables), card)
+    try:
+        ck = Checkpoint.from_pytree(variables, path, step=state["step"])
+        pred = TorchPredictor.from_checkpoint(
+            ck, apply_fn=lambda v, x: model.apply(v, x, train=False))
+        batch = {"x": np.random.RandomState(4).randn(64, 32, 32, 3).astype(
+            np.float32)}
+        got = pred.predict(batch)["predictions"]
+        saved_step = ck.step
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    with torch.inference_mode():
+        want = model.apply(variables, torch.from_numpy(batch["x"]).cuda(),
+                           train=False).cpu().numpy()
+    same = np.array_equal(got, want)
+    log(f"[resnet] TorchPredictor from the committed checkpoint (step "
+        f"{saved_step}) on the card: predictions [64, 10] "
+        f"{'equal' if same else 'differ from'} the eval logits bitwise "
+        f"(max|d| {np.abs(got - want).max():.3e}), on {card}")
+    assert same and got.shape == (64, 10)
+    del state, variables, pred
+    torch.cuda.empty_cache()
+
+
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "sm90")
 SERVE_KINDS = (("flash_fwd", ("flash_fwd",)),
                ("paged_decode", ("paged_decode",)), ("gemm", GEMM_NAMES))
 TRAIN_KINDS = (("flash_fwd", ("flash_fwd",)), ("dq", ("flash_bwd_dq",)),
                ("dkv", ("flash_bwd_dkv",)), ("optimizer", ("adam",)),
                ("gemm", GEMM_NAMES))
+RESNET_KINDS = (("optimizer", ("adam",)),
+                ("conv/gemm", GEMM_NAMES + ("conv", "cudnn", "dgrad",
+                                            "wgrad", "fprop")))
 
 
 def _report(what: str, wall_ms: float, rows, kinds=SERVE_KINDS,
@@ -1634,10 +2015,14 @@ def main() -> int:
     phase_moe_parity()
     ring = {"ring": phase_ring(card)}
     phase_ep_blocks(card)
-    serve = {"serve": phase_slice(card), "serve_moe": phase_slice_moe(card)}
+    serve, serve_ckpt = phase_slice(card)
+    serve = {"serve": serve, "serve_moe": phase_slice_moe(card),
+             "serve_ckpt": serve_ckpt}
     train = {"train": phase_train(card, mesh=True),
              "train_moe": phase_train_moe(card),
-             "pipeline": phase_pipeline(card)}
+             "pipeline": phase_pipeline(card),
+             "resume": phase_resume(card)}
+    phase_resnet(card)
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"

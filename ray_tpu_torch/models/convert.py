@@ -66,3 +66,62 @@ def adam_state_from_numpy(count: Any, mu: Dict[str, Any], nu: Dict[str, Any],
     optax's do with ``mu_dtype=None``."""
     return AdamState(int(np.asarray(count)), params_from_numpy(mu, cfg, device),
                      params_from_numpy(nu, cfg, device))
+
+
+def resnet_variables_from_numpy(variables: Dict[str, Any], model,
+                                device: DeviceLike = None) -> Dict[str, Any]:
+    """flax's ``{"params", "batch_stats"}`` of ``ray_tpu.models.ResNet``
+    (its auto names ``conv_init``, ``bn_init``, ``ResNetBlock_<i>`` with
+    ``Conv_0``/``Conv_1``/``BatchNorm_0``/``BatchNorm_1`` and, where the
+    block changes the shape, ``conv_proj``/``norm_proj``, and ``Dense_0``),
+    given as numpy, as the port's tree for ``model``
+    (``models/resnet.py``): HWIO kernels become OIHW, every shape is
+    checked against the port's own init, and the leaves stay float32."""
+    from .resnet import ResNet
+
+    if not isinstance(model, ResNet):
+        raise TypeError(f"want a models.resnet.ResNet, got {type(model)}")
+    dev = resolve_device(device)
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    names = {"conv_init": "conv_init", "bn_init": "bn_init",
+             "dense": "Dense_0"}
+    inner = {"conv1": "Conv_0", "norm1": "BatchNorm_0", "conv2": "Conv_1",
+             "norm2": "BatchNorm_1", "conv_proj": "conv_proj",
+             "norm_proj": "norm_proj"}
+    for i, (name, _block, _ch) in enumerate(model.blocks()):
+        names[name] = f"ResNetBlock_{i}"
+    expected = model.init(torch.Generator().manual_seed(0),
+                          (1, 32, 32, _in_channels(params)), "cpu")
+
+    def leaf(path, value, want):
+        a = np.asarray(value)
+        if a.ndim == 4:  # HWIO -> OIHW
+            a = a.transpose(3, 2, 0, 1)
+        if tuple(a.shape) != tuple(want.shape):
+            raise ValueError(f"{path}: shape {tuple(a.shape)}, the model "
+                             f"wants {tuple(want.shape)}")
+        return tensor_from_numpy(a, dev).to(torch.float32)
+
+    def convert(src, ours, path):
+        out = {}
+        for key, want in ours.items():
+            flax_key = names.get(key) if path == "" else inner.get(key, key)
+            if flax_key not in src:
+                raise ValueError(f"{path}{flax_key}: missing from the flax "
+                                 f"tree")
+            out[key] = (convert(src[flax_key], want, f"{path}{flax_key}/")
+                        if isinstance(want, dict)
+                        else leaf(path + flax_key, src[flax_key], want))
+        extra = set(src) - {names.get(k) if path == "" else inner.get(k, k)
+                            for k in ours}
+        if extra:
+            raise ValueError(f"{path}: the flax tree has {sorted(extra)}, "
+                             f"which the model does not")
+        return out
+
+    return {"params": convert(params, expected["params"], ""),
+            "batch_stats": convert(stats, expected["batch_stats"], "")}
+
+
+def _in_channels(params: Dict[str, Any]) -> int:
+    return int(np.asarray(params["conv_init"]["kernel"]).shape[2])

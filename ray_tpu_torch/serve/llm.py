@@ -37,6 +37,7 @@ from ..models.generation import (
     sample_logits,
 )
 from ..models.llama import LlamaConfig, init_params
+from ..train.checkpoint import Checkpoint
 
 
 class _Request:
@@ -313,20 +314,20 @@ class LLMEngine:
 
 class LLMDeployment:
     """Serve deployment wrapping an engine (a plain class; the serve
-    control plane is not ported). ``stream`` yields tokens as generated."""
+    control plane is not ported). ``stream`` yields tokens as generated.
+    Without ``params`` the weights come from ``checkpoint_path`` (a
+    ``train.checkpoint`` directory holding the parameter tree, restored
+    onto ``device``), else they are drawn from ``seed``."""
 
     def __init__(self, cfg: Optional[LlamaConfig] = None, params=None, *,
                  checkpoint_path=None, max_batch: int = 8, max_len: int = 512,
                  temperature: float = 0.0, seed: int = 0,
                  page_size: int = 16, total_pages: Optional[int] = None,
                  device: DeviceLike = None):
-        if params is None and checkpoint_path:
-            raise NotImplementedError(
-                "checkpoint_path needs the checkpoint payload, which is not "
-                "ported yet (ROADMAP.md Queue 1, 'Checkpoint payload')"
-            )
         dev = resolve_device(device)
         cfg = cfg if cfg is not None else LlamaConfig.tiny()
+        if params is None and checkpoint_path:
+            params = Checkpoint(checkpoint_path).as_pytree(device=dev)
         if params is None:
             params = init_params(
                 cfg, torch.Generator(device=dev).manual_seed(seed), dev)

@@ -52,6 +52,7 @@ from ..models.llama import (
     causal_lm_loss,
     init_params,
     num_params,
+    param_logical_axes,
     scan_chunks,
     trainable_leaves,
 )
@@ -165,6 +166,14 @@ class CompiledTrainStep:
         if self.plan is None:
             return None
         return TokenSharding(self.plan.tokens)
+
+    def state_logical_axes(self) -> Dict[str, Any]:
+        """The logical axes of ``{"params", "opt_state", "step"}`` (the
+        moments share the parameters' axes; the count and the step are
+        replicated), for ``train.checkpoint``'s ``logical_axes=``."""
+        axes = param_logical_axes(self.cfg)
+        return {"params": axes, "opt_state": AdamState(None, axes, axes),
+                "step": None}
 
     def _grad_buffers(self, params: Params) -> Params:
         ok = self._grads is not None and all(

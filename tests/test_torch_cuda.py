@@ -553,3 +553,179 @@ def test_paged_kernel_layer_form_and_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         qt = _randn(rng, (1, 8, 4, 64), torch.bfloat16, cuda).transpose(1, 2)
         fa.flash_attention(qt, qt, qt)
+
+
+def _assert_same_tree(got, want, device):
+    from ray_tpu_torch.train import AdamState
+
+    if isinstance(want, AdamState):
+        assert isinstance(got, AdamState) and got.count == want.count
+        got, want = (got.mu, got.nu), (want.mu, want.nu)
+    if isinstance(want, (dict, list, tuple)):
+        keys = want if isinstance(want, dict) else range(len(want))
+        assert len(got) == len(want)
+        for k in keys:
+            _assert_same_tree(got[k], want[k], device)
+    elif isinstance(want, torch.Tensor):
+        assert got.device.type == device and got.dtype == want.dtype
+        assert torch.equal(got.cpu(), want.cpu())
+    else:
+        assert got == want
+
+
+def test_checkpoint_saved_on_the_card_restores_bitwise(cuda, tmp_path):
+    """A tree of card tensors (bf16, float32, int64, a strided view, an
+    AdamState) saved from the card comes back bitwise on the card and on
+    the CPU."""
+    from ray_tpu_torch.train import AdamState, Checkpoint
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(64, 33, generator=g, device=cuda)
+    tree = {"w": w.to(torch.bfloat16), "b": w[:, 3:5], "i": torch.arange(
+        5, device=cuda), "opt": AdamState(2, {"w": w.to(torch.bfloat16)},
+                                         {"w": (w * w).to(torch.bfloat16)}),
+            "n": [3, 0.5]}
+    ck = Checkpoint.from_pytree(tree, str(tmp_path / "ck"), step=1)
+    assert ck.is_committed()
+    _assert_same_tree(ck.as_pytree(device="cuda"), tree, "cuda")
+    _assert_same_tree(ck.as_pytree(device="cpu"), tree, "cpu")
+
+
+def test_as_pytree_restores_to_the_card_by_default(cuda, tmp_path):
+    from ray_tpu_torch.train import Checkpoint, TorchPredictor
+
+    ck = Checkpoint.from_pytree({"w": torch.ones(3, 2)},
+                                str(tmp_path / "ck"))
+    assert ck.as_pytree()["w"].device.type == "cuda"
+    pred = TorchPredictor.from_checkpoint(ck,
+                                          apply_fn=lambda p, x: x @ p["w"])
+    out = pred.predict({"x": np.ones((4, 3), np.float32)})["predictions"]
+    np.testing.assert_array_equal(out, np.full((4, 2), 3.0, np.float32))
+
+
+@pytest.fixture
+def no_tf32():
+    """TF32 off for cuDNN and matmuls during the test, restored after."""
+    was = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = was
+
+
+def _on(tree, device):
+    """A copy of a tree of dicts, AdamStates and tensors on ``device``."""
+    from ray_tpu_torch.train import AdamState
+
+    if isinstance(tree, AdamState):
+        return AdamState(tree.count, _on(tree.mu, device),
+                         _on(tree.nu, device))
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True)
+    return tree
+
+
+def _flat_tensors(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for name, sub in tree.items()
+                for k, v in _flat_tensors(sub, f"{prefix}{name}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def _assert_close_trees(got, want, tol, what):
+    """Every leaf within ``tol`` of its own max|ref|."""
+    want = _flat_tensors(want)
+    got = _flat_tensors(got)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        d = (got[k].detach().cpu() - w).abs().max().item()
+        assert d <= tol * w.abs().max().item(), (what, k, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet_block_on_the_card_matches_the_cpu(cuda, no_tf32, dtype):
+    """A projecting ResNet block (stride 2, 8 -> 16 channels, "SAME"
+    padding 0 before and 1 after) in train and eval mode, card against
+    CPU from the same weights, TF32 off: 1e-4 (float32) or 2e-2 (bf16
+    convolutions) of max|ref|, batch statistics too. On the card the
+    input is NCHW over channels-last memory, as the model gives it."""
+    from ray_tpu_torch.models.resnet import ResNetBlock
+
+    block = ResNetBlock(16, (2, 2), dtype)
+    g = torch.Generator().manual_seed(0)
+    params, stats = block.init(g, 8, torch.device("cpu"))
+    params["norm2"]["scale"] = 1 + 0.1 * torch.randn(16, generator=g)
+    x = torch.randn(4, 8, 10, 10, generator=g)
+    x_card = x.to(cuda).contiguous(memory_format=torch.channels_last)
+
+    tol = TOL[dtype] if dtype == torch.bfloat16 else 1e-4
+    for train in (True, False):
+        want, want_stats = block.apply(params, stats, x, train)
+        got, got_stats = block.apply(_on(params, cuda), _on(stats, cuda),
+                                     x_card, train)
+        assert got.shape == want.shape == (4, 16, 5, 5)
+        assert got.dtype == torch.float32
+        top = want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= tol * top
+        _assert_close_trees(got_stats, want_stats, tol, "batch_stats")
+
+
+class _Recorded:
+    """An optimizer that keeps CPU copies of what ``update`` was given."""
+
+    def __init__(self, tx):
+        self.tx = tx
+
+    def update(self, params, grads, state):
+        self.given = (_on(params, "cpu"), _on(grads, "cpu"),
+                      _on(state, "cpu"))
+        return self.tx.update(params, grads, state)
+
+
+def test_resnet_step_on_the_card_matches_the_cpu(cuda, no_tf32):
+    """One ``train_step`` of a two-stage float32 ResNet on NHWC input, so
+    the card runs cuDNN's channels-last forward and backward: loss and new
+    batch statistics within 1e-4 of the CPU's from the same weights, every
+    kernel and norm gradient within 1e-3 of its max|ref| (TF32 off); and
+    the fused AdamW on the card's gradients gives the params and moments
+    that the CPU's AdamW gives on the same gradients and state (and the
+    betas rounded to float32, as the card's kernel rounds them), within
+    1e-5. bf16 is left to the block test: a bf16 gradient's rounding,
+    amplified by the norms' cancellation, is no test of the layout."""
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.train import AdamW
+
+    model = resnet.ResNet([1, 1], num_classes=10, num_filters=8,
+                          dtype=torch.float32)
+    adam = AdamW(1e-2, weight_decay=0.0)
+    g = torch.Generator().manual_seed(0)
+    cpu = resnet.create_train_state(model, g, (4, 16, 16, 3), adam, "cpu")
+    for name, block, _ch in model.blocks():
+        cpu["params"][name]["norm2"]["scale"] = 1 + 0.1 * torch.randn(
+            block.filters, generator=g)
+    x = torch.randn(4, 16, 16, 3, generator=g)
+    y = torch.randint(0, 10, (4,), generator=g)
+    card = _on(cpu, cuda)
+
+    want_loss, want_grads, want_stats = resnet.loss_and_grads(
+        model, cpu, x, y)
+    rec = _Recorded(adam)
+    loss = resnet.train_step(model, card, x.to(cuda), y.to(cuda), rec)
+    assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(
+        want_loss.item())
+    _assert_close_trees(card["batch_stats"], want_stats, 1e-4,
+                        "batch_stats")
+    params, grads, opt = rec.given
+    _assert_close_trees(grads, want_grads, 1e-3, "grads")
+    # The CUDA fused AdamW rounds the betas to float32 (1 - b2 is then off
+    # by 1.29e-5 of itself); the CPU's is given the same rounded betas.
+    AdamW(1e-2, b1=float(np.float32(0.9)), b2=float(np.float32(0.999)),
+          weight_decay=0.0).update(params, grads, opt)
+    _assert_close_trees(card["params"], params, 1e-5, "params")
+    _assert_close_trees(card["opt_state"].mu, opt.mu, 1e-5, "mu")
+    _assert_close_trees(card["opt_state"].nu, opt.nu, 1e-5, "nu")
+    assert card["opt_state"].count == opt.count == 1 and card["step"] == 1

@@ -220,6 +220,8 @@ def fresh_import(tmp_path_factory):
         "import ray_tpu_torch.parallel.ring_attention\n"
         "import ray_tpu_torch.parallel.pipeline\n"
         "import ray_tpu_torch.parallel.dryrun\n"
+        "import ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.predictor\n"
+        "import ray_tpu_torch.models.resnet, ray_tpu_torch.util.faults\n"
         "from ray_tpu_torch.ops import _build, flash_attention as fa\n"
         "from ray_tpu_torch.ops import paged_attention as pa\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -98,7 +98,7 @@ def test_streaming_and_deployment(tiny):
         assert dep.stats()["free_slots"] == 2
     finally:
         dep.engine.shutdown()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(FileNotFoundError):
         LLMDeployment(cfg, checkpoint_path="/nonexistent", device="cpu")
 
 
@@ -162,3 +162,32 @@ def test_deployment_given_params_serves_them_beside_a_checkpoint_path(tiny):
     finally:
         dep.engine.shutdown()
         jdep.engine.shutdown()
+
+
+def test_deployment_serves_from_a_checkpoint_as_jax_does(tiny, tmp_path):
+    """Both packages' deployments load their own checkpoint of the same
+    weights (JAX: orbax; the port: its torch.save payload, given the
+    weights through params_from_numpy) and answer the same greedy
+    tokens."""
+    from ray_tpu.serve.llm import LLMDeployment as JaxDeployment
+    from ray_tpu.train.checkpoint import Checkpoint as JaxCheckpoint
+    from ray_tpu_torch.train import Checkpoint
+
+    jcfg, jparams, cfg, params = tiny
+    JaxCheckpoint.from_pytree(jparams, str(tmp_path / "jax"))
+    Checkpoint.from_pytree(params, str(tmp_path / "port"))
+    request = {"prompt": [7, 1, 9, 4], "max_new_tokens": 6}
+    jdep = JaxDeployment(jcfg, checkpoint_path=str(tmp_path / "jax"),
+                         max_batch=2)
+    dep = LLMDeployment(cfg, checkpoint_path=str(tmp_path / "port"),
+                        max_batch=2, device="cpu")
+    try:
+        for k, v in dep.engine.params["layers"].items():
+            assert torch.equal(v, params["layers"][k]), k
+        assert dep(request) == jdep(request)
+    finally:
+        dep.engine.shutdown()
+        jdep.engine.shutdown()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LLMDeployment(cfg, checkpoint_path=str(tmp_path / "port"))
