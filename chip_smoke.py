@@ -97,6 +97,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
      synthetic data from a seed), 8 Adam(1e-2) steps (the loss falls;
      ms/step, images/s, a profiled step), committed and scored by
      TorchPredictor on the card (equal to the eval logits bitwise);
+  10. telemetry on the main paths ([telemetry] lines): the compiles by fn
+     of phase 5's and 5b's engines (decode_step 1, prefill one a bucket)
+     and of phase 7's and 7b's steps (one a token shape); after each
+     step's main path, memory_snapshot() against torch.cuda.memory_stats
+     read at the same moment, the card's total and the memory gauges; the
+     collective calls and bytes by op of a mesh step beside the NCCL calls
+     the profiler counts in it; the spans of phases 8 and 8b (train_step,
+     ckpt_save:, ckpt_restore:) and timeline(path) read back as JSON; the
+     decode tap's cost (64-step windows of phase 5's step with and without
+     it, in turns); prometheus.render() holding every ray_tpu_device_*
+     series;
+  11. ingest (data.iter_device_batches) at phase 9's geometry: batches
+     read back bitwise equal to their seeded numpy source; ResNet-18's
+     bf16 step fed by the ingest against pre-staged batches, in turns; the
+     host-to-device rate of a 38.5 MB uint8 batch through the ingest,
+     pinned and pageable; a profiler trace of ingested steps (each copy
+     on the side stream, finished before its step's first kernel);
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -178,6 +195,67 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[torch.cuda.current_device()].strip()
+
+
+# ------------------------------------------------ telemetry helpers (10)
+
+def counts_by(name: str, tag: str):
+    """{tag value: value} of one series of this process's metrics report."""
+    from ray_tpu_torch.util import metrics
+
+    series = metrics.get_metrics_report().get(name, {}).get("series", {})
+    return {dict(k)[tag]: v for k, v in series.items()}
+
+
+def compile_counts():
+    return (counts_by("ray_tpu_device_jit_compiles_total", "fn"),
+            counts_by("ray_tpu_device_jit_compile_seconds_total", "fn"))
+
+
+def collective_counts():
+    return (counts_by("ray_tpu_device_collective_calls_total", "op"),
+            counts_by("ray_tpu_device_collective_bytes_total", "op"))
+
+
+def grown(after, before):
+    """What grew between two {key: value} readings."""
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
+@contextlib.contextmanager
+def traced():
+    """An active span for the block; yields its trace id."""
+    from ray_tpu_torch.util import timeline
+
+    trace = timeline.new_trace_id()
+    prev = timeline.enter_span(trace, timeline.new_span_id())
+    try:
+        yield trace
+    finally:
+        timeline.exit_span(prev)
+
+
+def span_names(trace: str):
+    """The names of the spans recorded under ``trace``, in order."""
+    from ray_tpu_torch.util import timeline
+
+    return [e["name"] for e in timeline.timeline()
+            if e["args"]["trace_id"] == trace]
+
+
+# trace id -> the span names phase 10 expects under it (phases 8 and 8b).
+SPANS = {}
+
+
+def check_spans(tag: str, want, card: str) -> None:
+    """The spans recorded under each trace of ``want`` ({trace: names})
+    are exactly those names, in order."""
+    got = {trace: span_names(trace) for trace in want}
+    log(f"[telemetry] {tag} spans under an active trace: "
+        f"{list(got.values())} (want {list(want.values())}); on {card}")
+    assert got == want, (got, want)
+    SPANS.update(want)
 
 
 def phase_build():
@@ -943,6 +1021,7 @@ def phase_slice(card: str):
     assert torch.isfinite(lf).all() and d <= tol, d
 
     launches, prompts, outs = serve_six(cfg, params, card, "slice", rng)
+    phase_tap_cost(cfg, params, card)
     phase_breakdown(cfg, params, card)
     serve_ckpt = phase_serve_checkpoint(cfg, params, card, prompts, outs)
     del params
@@ -965,7 +1044,9 @@ def serve_six(cfg, params, card: str, tag: str, rng, eng=None,
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    if eng is None:
+    built = eng is None
+    compiles0 = compile_counts()
+    if built:
         eng = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
     eng.generate(rng.randint(0, cfg.vocab_size, 40).tolist(), 2)  # warm-up
     lens = [40, 100, 300, 60, 130, 200]
@@ -1025,6 +1106,16 @@ def serve_six(cfg, params, card: str, tag: str, rng, eng=None,
     log(f"[{tag}] launches on the main path: {launches} ({L} layers: "
         f"flash {launches['flash_fwd'] / L:.0f} prefills with bucket >= 128,"
         f" paged {launches['paged_decode'] / L:.0f} decode steps)")
+    if built:  # phase 10: the engine's compile telemetry
+        count, secs = (grown(a, b) for a, b in zip(compile_counts(),
+                                                    compiles0))
+        buckets = sorted({eng._bucket(n) for n in [40] + lens})
+        want = {"decode_step": 1.0, "prefill": float(len(buckets))}
+        log(f"[telemetry] {tag} engine compiles by fn {count} (want {want}: "
+            f"one decode shape, prefill buckets {buckets}); compile seconds "
+            + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+            + f"; on {card}")
+        assert count == want, (count, want)
     return launches, prompts, outs
 
 
@@ -1137,6 +1228,120 @@ def _grad_norms(grads):
     return {k: norm(v) for k, v in flat_tree(grads).items()}
 
 
+def phase_tap_cost(cfg, params, card: str):
+    """Phase 10: what the decode step's telemetry tap costs. Phase 5's
+    engine (max_len 2048, to hold the steps) with its loop stopped: four
+    requests (40-token prompts) prefilled by ``_admit`` in this thread,
+    then 64-step windows of the tapped decode step (``eng._decode``, a
+    ring of 64) and of the bare step (its ``__wrapped_fn__``), three
+    rounds of (tap, bare, bare, tap), then the two alternating a step at
+    a time. Each step ends on the host (the sampled tokens are copied
+    back), so a step's wall time is its own. The wrapper's own cost is
+    timed on a no-op beside it."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.util.device_metrics import instrumented_step
+
+    eng = LLMEngine(cfg, params, device="cuda",
+                    **dict(SERVE_ENGINE, max_len=2048))
+    eng.shutdown()  # this thread drives the steps
+    rng = np.random.RandomState(5)
+    for _ in range(4):
+        eng.submit(rng.randint(0, cfg.vocab_size, 40).tolist(), 2000)
+    active = np.ones(4, dtype=bool)
+    tapped = eng._decode
+    bare = tapped.__wrapped_fn__
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn(active)
+        return (time.perf_counter() - t0) * 1e3
+
+    rounds = []
+    with torch.inference_mode():
+        eng._admit()
+        assert len(eng._slot_req) == 4, eng.stats()
+        for fn in (bare, tapped) * 4:  # warm-up, and the tap's one compile
+            fn(active)
+        for _ in range(3):  # 64-step windows: tap, bare, bare, tap
+            rounds.append([float(np.mean([timed(fn) for _ in range(64)]))
+                           for fn in (tapped, bare, bare, tapped)])
+        # Then the two in alternation, a step each, which goes first
+        # alternating too: the host's drift (2x between runs, PERF.md
+        # section 7) falls on both alike.
+        alt = {"tap": [], "bare": []}
+        for i in range(256):
+            for which in (("tap", "bare"), ("bare", "tap"))[i % 2]:
+                alt[which].append(timed(tapped if which == "tap" else bare))
+    ratios = [(r[0] + r[3]) / (r[1] + r[2]) for r in rounds]
+    med = {k: float(np.median(v)) for k, v in alt.items()}
+
+    def tap_probe(active):
+        return active
+
+    probe = instrumented_step(tap_probe, tap_stride=64,
+                              signature=lambda active: active.shape)
+    cost = {}
+    for name, fn in (("bare", tap_probe), ("tap", probe)) * 2:
+        t0 = time.perf_counter()
+        for _ in range(100_000):
+            fn(active)
+        cost[name] = (time.perf_counter() - t0) / 100_000 * 1e6
+    ratio = float(np.median(ratios))
+    alt_ratio = med["tap"] / med["bare"]
+    log(f"[telemetry] decode step B=4 (llama3_8b), 64-step windows (tap, "
+        f"bare, bare, tap) x 3, ms/step: "
+        f"{[[round(v, 2) for v in r] for r in rounds]}; tap / bare by "
+        f"round {[round(v, 4) for v in ratios]}, median {ratio:.4f} "
+        f"({'within' if abs(ratio - 1) <= 0.02 else 'NOT within'} 2%); "
+        f"alternating a step each (256 each): median {med['tap']:.3f} / "
+        f"{med['bare']:.3f} ms = {alt_ratio:.4f} "
+        f"({'within' if abs(alt_ratio - 1) <= 0.02 else 'NOT within'} "
+        f"2%); the wrapper on a no-op {cost['tap'] - cost['bare']:.3f} µs "
+        f"a call; the tap's compiles {tapped.cache_size()}; on {card}")
+    assert tapped.cache_size() == 1
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_telemetry(card: str):
+    """Phase 10's last part: the spans of phases 8 and 8b written by
+    ``timeline(path)`` and read back as JSON, and the exposition document,
+    which must hold every ray_tpu_device_* series that was touched."""
+    from ray_tpu_torch.util import metrics, prometheus, timeline
+    from ray_tpu_torch.util.prometheus import _fmt_labels
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "smoke_timeline.json")
+    events = timeline.timeline(path)
+    with open(path) as f:
+        reread = json.load(f)
+    assert reread == events
+    for trace, names in SPANS.items():
+        got = [e["name"] for e in reread if e["args"]["trace_id"] == trace]
+        assert got == names, (got, names)
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in reread)
+    kinds = [n.split(":")[0] for names in SPANS.values() for n in names]
+    log(f"[telemetry] timeline({path!r}): {len(reread)} chrome-trace events "
+        f"re-read as JSON, the {len(kinds)} spans of phases 8 and 8b among "
+        f"them ({ {k: kinds.count(k) for k in sorted(set(kinds))} }); on "
+        f"{card}")
+    text = prometheus.render()
+    report = metrics.get_metrics_report()
+    touched = sorted(n for n in report if n.startswith("ray_tpu_device_"))
+    for name in touched:
+        assert f"# TYPE {name} " in text, name
+        for tags in report[name]["series"]:
+            assert f"\n{name}{_fmt_labels(tags)} " in text, (name, tags)
+    log(f"[telemetry] prometheus.render(): {len(text.splitlines())} lines, "
+        f"{len(touched)} ray_tpu_device_* metrics touched, every series "
+        f"present; on {card}:")
+    for line in text.splitlines():
+        if line.startswith("ray_tpu_device_"):
+            log(f"[telemetry]   {line}")
+    assert len(touched) == 9, touched
+
+
 # Kernel name -> its launch counter in ray_tpu_torch.ops.flash_attention.
 TRAIN_COUNTERS = {"flash_fwd": "launches", "flash_bwd_dq": "bwd_dq_launches",
                   "flash_bwd_dkv": "bwd_dkv_launches",
@@ -1174,6 +1379,7 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
     B, S = 1, 2048
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    compiles0 = compile_counts()
     t0 = time.perf_counter()
     step = CompiledTrainStep(cfg, learning_rate=1e-3,
                              mesh=make_mesh() if mesh else None)
@@ -1267,6 +1473,7 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
         assert np.isfinite(loss_short.item())
     launches = train_launches()
     peak = torch.cuda.max_memory_allocated()
+    telemetry_train(step, compiles0, 1 + short_step, card, tag)
     ms = float(np.median(times[2:])) * 1e3
     if mesh:
         compare_without_mesh(step, params, opt_state, tokens, card, tag)
@@ -1317,6 +1524,45 @@ def phase_train(card: str, cfg=None, tag: str = "train", name="llama3_8b",
     if mesh:
         dist.destroy_process_group()
     return launches
+
+
+def telemetry_train(step, compiles0, shapes: int, card: str, tag: str):
+    """Phase 10 after a train phase's main path: one compile per token
+    shape the step ran, and the step's memory snapshot against
+    torch.cuda.memory_stats read at the same moment, the card's total
+    and the published gauges."""
+    from ray_tpu_torch.util import device_metrics
+
+    count, secs = (grown(a, b) for a, b in zip(compile_counts(), compiles0))
+    stats = step.compile_stats()
+    log(f"[telemetry] {tag} step compiles by fn {count}, compile_stats "
+        f"{stats} (want {shapes}, one a token shape); compile seconds "
+        f"{secs.get('train_step', 0.0):.3f}; on {card}")
+    assert count == {"train_step": float(shapes)}, count
+    assert stats == {"fn": "train_step", "executables": shapes}, stats
+    snap = step.memory_snapshot()
+    raw = torch.cuda.memory_stats()
+    total = torch.cuda.mem_get_info()[1]
+    pairs = {"bytes_in_use": "allocated_bytes.all.current",
+             "peak_bytes_in_use": "allocated_bytes.all.peak",
+             "bytes_reserved": "reserved_bytes.all.current",
+             "peak_bytes_reserved": "reserved_bytes.all.peak"}
+    (info,) = device_metrics.sample()
+    gauges = {k: counts_by(f"ray_tpu_device_memory_{k}", "device")["gpu:0"]
+              for k in ("bytes_in_use", "peak_bytes", "limit_bytes",
+                        "fragmentation_ratio")}
+    log(f"[telemetry] {tag} memory_snapshot() {snap}; torch.cuda."
+        f"memory_stats {({v: raw[v] for v in pairs.values()})}; card total "
+        f"{total} (mem_get_info); gauges {gauges}; on {card}")
+    assert all(snap[k] == raw[v] for k, v in pairs.items()), (snap, raw)
+    assert abs(snap["bytes_limit"] - total) <= 0.01 * total, snap
+    assert 0.0 <= snap["fragmentation"] <= 1.0, snap
+    assert info["bytes_in_use"] == snap["bytes_in_use"], (info, snap)
+    assert gauges["bytes_in_use"] == snap["bytes_in_use"]
+    assert gauges["peak_bytes"] == snap["peak_bytes_in_use"]
+    assert gauges["limit_bytes"] == snap["bytes_limit"]
+    assert abs(gauges["fragmentation_ratio"] - snap["fragmentation"]) \
+        <= 5e-5, (gauges, snap)
 
 
 def check_dispatch_without_mesh(step, params, tokens, routed, loss, tag):
@@ -1472,15 +1718,30 @@ def phase_train_breakdown(step, params, opt_state, tokens):
 
     step(params, opt_state, tokens)
     torch.cuda.synchronize()
+    counts0 = collective_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         step(params, opt_state, tokens)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+    calls, nbytes = (grown(a, b) for a, b in zip(collective_counts(),
+                                                  counts0))
     _report("train step B=1 S=2048", wall, _device_kernels(prof, 1),
             kinds=TRAIN_KINDS, top=12, moe=_moe_ranges(prof, 1))
-    _host_report(prof)
+    nccl = _host_report(prof)
+    if step.mesh is not None:  # phase 10: the step's collectives, counted
+        n = sum(calls.values())
+        log(f"[telemetry] collectives a step through the mesh, counted by "
+            f"the port (a Python-level call each): {n} calls, by op "
+            f"{ {k: int(v) for k, v in calls.items()} }, bytes by op "
+            f"{ {k: int(v) for k, v in nbytes.items()} }; the profiler's "
+            f"NCCL calls (nccl:* ranges) in the same step: {nccl} "
+            f"({nccl / max(n, 1):.3f} a counted call: an all-reduce over k "
+            f"axes is one counted call and k NCCL calls, and the backward's "
+            f"transposes are NCCL calls the port does not count)")
+        assert n > 0 and set(calls) <= {"allreduce", "allgather",
+                                        "broadcast"}, calls
 
 
 def _host_report(prof):
@@ -1497,6 +1758,7 @@ def _host_report(prof):
         or "none") + "; most CPU time of their own: " + ", ".join(
         f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.1f} ms"
         for e in top))
+    return sum(e.count for e in coll if e.key.startswith("nccl:"))
 
 
 def _device_kernels(prof, steps: int):
@@ -1597,7 +1859,8 @@ def phase_serve_checkpoint(cfg, params, card: str, prompts, outs5):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ck = Checkpoint.from_pytree(params, path)
+        with traced() as trace:  # phase 10: the save's and restore's spans
+            ck = Checkpoint.from_pytree(params, path)
         save_s = time.perf_counter() - t0
         files = ck.manifest()["files"]
         on_disk = sum(files.values())
@@ -1607,10 +1870,14 @@ def phase_serve_checkpoint(cfg, params, card: str, prompts, outs5):
             f"{nbytes / save_s / 1e9:.3f} GB/s save, copies to the host, "
             f"torch.save and fsyncs included, on {card}")
         t0 = time.perf_counter()
-        dep = LLMDeployment(cfg, checkpoint_path=path, device="cuda",
-                            **SERVE_ENGINE)
+        with traced() as restore_trace:
+            dep = LLMDeployment(cfg, checkpoint_path=path, device="cuda",
+                                **SERVE_ENGINE)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        check_spans("serve-ckpt", {trace: ["ckpt_save:llama3_8b"],
+                                   restore_trace: ["ckpt_restore:llama3_8b"]},
+                    card)
         log(f"[serve-ckpt] LLMDeployment(checkpoint_path=) built in "
             f"{load_s:.2f} s: {nbytes / load_s / 1e9:.3f} GB/s load (read, "
             f"copy to the card and the engine's set-up), on {card}")
@@ -1658,35 +1925,39 @@ def phase_resume(card: str):
         return (step, *step.init(
             torch.Generator(device="cuda").manual_seed(0)))
 
-    step, params, opt = fresh()
-    straight = [step(params, opt, step.token_sharding().cut(t))[2].item()
-                for t in toks]
-    step1, p1, o1 = fresh()
-    first = step1(p1, o1, step1.token_sharding().cut(toks[0]))[2].item()
-    state = {"params": p1, "opt_state": o1, "step": 1}
-    nbytes = tree_bytes(state)
-    path = ckpt_dir("resume", nbytes, card)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        Checkpoint.from_pytree(state, path, step=1, mesh=mesh,
-                               logical_axes=step1.state_logical_axes())
-        save_s = time.perf_counter() - t0
-        del state, p1, o1, step1
-        torch.cuda.empty_cache()
-        step2 = CompiledTrainStep(cfg, learning_rate=1e-3, mesh=mesh)
-        train_launches(reset=True)  # the main path: restore and 2 steps
-        t0 = time.perf_counter()
-        got = Checkpoint(path).as_pytree(
-            mesh=mesh, logical_axes=step2.state_logical_axes())
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        resumed = [step2(got["params"], got["opt_state"],
-                         step2.token_sharding().cut(t))[2].item()
-                   for t in toks[1:]]
-        launches = train_launches()
-    finally:
-        shutil.rmtree(path, ignore_errors=True)
+    with traced() as trace:  # phase 10: every step, the save, the restore
+        step, params, opt = fresh()
+        straight = [step(params, opt, step.token_sharding().cut(t))[2].item()
+                    for t in toks]
+        step1, p1, o1 = fresh()
+        first = step1(p1, o1, step1.token_sharding().cut(toks[0]))[2].item()
+        state = {"params": p1, "opt_state": o1, "step": 1}
+        nbytes = tree_bytes(state)
+        path = ckpt_dir("resume", nbytes, card)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Checkpoint.from_pytree(state, path, step=1, mesh=mesh,
+                                   logical_axes=step1.state_logical_axes())
+            save_s = time.perf_counter() - t0
+            del state, p1, o1, step1
+            torch.cuda.empty_cache()
+            step2 = CompiledTrainStep(cfg, learning_rate=1e-3, mesh=mesh)
+            train_launches(reset=True)  # the main path: restore and 2 steps
+            t0 = time.perf_counter()
+            got = Checkpoint(path).as_pytree(
+                mesh=mesh, logical_axes=step2.state_logical_axes())
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            resumed = [step2(got["params"], got["opt_state"],
+                             step2.token_sharding().cut(t))[2].item()
+                       for t in toks[1:]]
+            launches = train_launches()
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+    check_spans("resume", {trace: ["train_step"] * 4 + [
+        "ckpt_save:resume", "ckpt_restore:resume"] + ["train_step"] * 2},
+        card)
     log(f"[resume] {cfg.num_layers}-layer llama3_8b state ({nbytes / 1e9:.3f}"
         f" GB: bf16 params and moments) saved sharded under {mesh} in "
         f"{save_s:.2f} s ({nbytes / save_s / 1e9:.3f} GB/s), restored onto "
@@ -1893,6 +2164,298 @@ def phase_resnet(card: str):
     torch.cuda.empty_cache()
 
 
+def _traced_ranges(path: str, prefix: str):
+    """From a profiler's chrome trace: {CPU range name: the GPU kernels,
+    copies and memsets launched inside it, as (name, stream, start, end,
+    correlation) in launch order}, for the ranges whose name starts with
+    ``prefix``, in µs. A launch belongs to a range when its runtime call
+    falls inside the range's time, on any thread (autograd launches the
+    backward from its own)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    gpu, ranges, launches = {}, {}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat", ""), e.get("args", {})
+        end = e["ts"] + e.get("dur", 0)
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset") and \
+                "correlation" in args:
+            gpu[args["correlation"]] = (e["name"], args.get("stream"),
+                                        e["ts"], end, args["correlation"])
+        elif cat == "user_annotation" and e["name"].startswith(prefix):
+            ranges[e["name"]] = (e["ts"], end)
+        elif cat in ("cuda_runtime", "cuda_driver") and \
+                "correlation" in args:
+            launches.append((e["ts"], args["correlation"]))
+    return {name: [gpu[c] for t, c in sorted(launches, key=lambda x: x[1])
+                   if t0 <= t <= t1 and c in gpu]
+            for name, (t0, t1) in ranges.items()}
+
+
+def phase_ingest(card: str):
+    """Phase 11: the ingest (``data.iter_device_batches``) at phase 9's
+    ResNet-18 geometry: a seeded numpy source (float32 images B=128,
+    32x32x3, int64 labels) ingested bitwise, in order, with JAX's dtypes;
+    the bf16 train step fed by the ingest against the same step on batches
+    already on the card, in turns; the host-to-device rate of a 38.5 MB
+    uint8 batch (B=256, 224x224x3), pinned against pageable; the ingest's
+    pinned ring against a plain one-ahead copy from pageable memory
+    (``pageable_batches``), in turns on both; and a profiler trace of
+    ingested steps: each batch's copy on the side stream, against the
+    steps' kernels."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ray_tpu_torch.data import ingest, iter_device_batches
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.train import AdamW
+
+    B, n = 128, 32
+    rs = np.random.RandomState(11)
+    source = [{"x": rs.randn(B, 32, 32, 3).astype(np.float32),
+               "y": rs.randint(0, 10, (B,))} for _ in range(n)]
+    # 1. Values: every batch read back from the card equals its source.
+    got = [{k: t.cpu() for k, t in b.items()}
+           for b in iter_device_batches(source)]
+    same = all(torch.equal(g["x"], torch.from_numpy(w["x"]))
+               and torch.equal(g["y"], torch.from_numpy(
+                   w["y"].astype(np.int32)))
+               for g, w in zip(got, source))
+    log(f"[ingest] {len(got)} of {n} batches (x float32 [{B}, 32, 32, 3], y "
+        f"int64 -> {got[0]['y'].dtype}) read back from the card: "
+        f"{'bitwise equal to' if same else 'DIFFER from'} their source, in "
+        f"order; on {card}")
+    assert same and len(got) == n and got[0]["y"].dtype == torch.int32
+
+    def pageable_batches(batches):
+        """The plain alternative to the ingest's pinned ring: each batch
+        copied from its own pageable memory on a side stream, one batch
+        ahead, handed over with the same event wait and record_stream."""
+        side = torch.cuda.Stream()
+
+        def put(batch):
+            with torch.cuda.stream(side):
+                out = {key: torch.from_numpy(np.ascontiguousarray(
+                    v, dtype=ingest.canonical_dtype(v.dtype))).to(
+                        "cuda", non_blocking=True)
+                    for key, v in batch.items()}
+                event = torch.cuda.Event()
+                event.record(side)
+            return out, event
+
+        def take(pending):
+            out, event = pending
+            consumer = torch.cuda.current_stream()
+            consumer.wait_event(event)
+            for t in out.values():
+                t.record_stream(consumer)
+            return out
+
+        return ingest._one_ahead(batches, put, take)
+
+    def host_timed(batches, acc):
+        """``batches``, adding the host seconds of each next() to acc."""
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                return
+            acc.append(time.perf_counter() - t0)
+            yield b
+
+    got = [{k: t.cpu() for k, t in b.items()}
+           for b in pageable_batches(source)]
+    assert all(torch.equal(g["x"], torch.from_numpy(w["x"]))
+               and torch.equal(g["y"], torch.from_numpy(
+                   w["y"].astype(np.int32))) for g, w in zip(got, source))
+    del got
+
+    # 2. The train step fed by the ingest, by pageable_batches and on
+    # pre-staged batches: three rounds of (ingest, staged, pageable,
+    # pageable, staged, ingest), n steps a window; the host's seconds
+    # inside each next() of the two feeds.
+    model = resnet.resnet18()
+    adam = AdamW(1e-2, weight_decay=0.0)
+    state = resnet.create_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0),
+        (B, 32, 32, 3), adam, "cuda")
+    staged = [{"x": torch.from_numpy(b["x"]).cuda(),
+               "y": torch.from_numpy(b["y"].astype(np.int32)).cuda()}
+              for b in source]
+
+    feeds = {"ingest": lambda: iter_device_batches(source),
+             "pageable": lambda: pageable_batches(source),
+             "staged": lambda: staged}
+    host = {"ingest": [], "pageable": []}
+
+    def window(which):
+        batches = feeds[which]()
+        if which in host:
+            batches = host_timed(batches, host[which])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            resnet.train_step(model, state, b["x"], b["y"], adam)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    window("ingest")  # warm-ups: plans, pinned buffers
+    window("pageable")
+    host = {"ingest": [], "pageable": []}
+    ms = {k: [] for k in feeds}
+    for which in ("ingest", "staged", "pageable",
+                  "pageable", "staged", "ingest") * 3:
+        ms[which].append(window(which))
+    fed, page, pre = (float(np.median(ms[k]))
+                      for k in ("ingest", "pageable", "staged"))
+    log(f"[ingest] resnet18 bf16 train step B={B}, {n}-step windows, 3 "
+        f"rounds of (ingest, staged, pageable, pageable, staged, ingest): "
+        f"fed by the ingest {[round(v, 2) for v in ms['ingest']]} ms/step, "
+        f"by pageable_batches {[round(v, 2) for v in ms['pageable']]}, on "
+        f"batches already on the card {[round(v, 2) for v in ms['staged']]}"
+        f"; medians {fed:.2f} / {page:.2f} / {pre:.2f}: the ingest "
+        f"{fed / pre:.4f}x pre-staged "
+        f"({'within' if fed / pre <= 1.05 else 'NOT within'} 5%), "
+        f"pageable {page / pre:.4f}x; on {card}")
+    log(f"[ingest] host µs inside next() a step (median, mean over "
+        f"{len(host['ingest'])} steps): the ingest's pinned ring "
+        f"{np.median(host['ingest']) * 1e6:.1f}, "
+        f"{np.mean(host['ingest']) * 1e6:.1f}; pageable_batches "
+        f"{np.median(host['pageable']) * 1e6:.1f}, "
+        f"{np.mean(host['pageable']) * 1e6:.1f}; on {card}")
+
+    # 3. Host-to-device rates for one 38.5 MB uint8 batch, each after a
+    # warm-up (the ingest's: its pinned buffers, which the host allocator
+    # then keeps).
+    big = rs.randint(0, 256, (256, 224, 224, 3)).astype(np.uint8)
+    nbytes, k = big.nbytes, 8
+
+    def ingest_s():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in iter_device_batches([{"x": big}] * k):
+            assert b["x"].dtype == torch.uint8
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k
+
+    ingest_s()
+    through = ingest_s()
+
+    # The pinned ring (with its threaded fill, and filled by one thread)
+    # against pageable_batches, host seconds a batch, in turns.
+    def feed_s(which):
+        one = which == "ring, one thread"
+        keep, ingest.FILL_BYTES = ingest.FILL_BYTES, (
+            1 << 62 if one else ingest.FILL_BYTES)
+        try:
+            feed = (pageable_batches if which == "pageable"
+                    else iter_device_batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in feed([{"x": big}] * k):
+                assert b["x"].dtype == torch.uint8
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / k
+        finally:
+            ingest.FILL_BYTES = keep
+
+    turns = ("ring", "ring, one thread", "pageable")
+    for which in turns:
+        feed_s(which)  # warm-up
+    rate = {w: [] for w in turns}
+    for which in (turns + turns[::-1]) * 2:
+        rate[which].append(nbytes / feed_s(which) / 1e9)
+    log(f"[ingest] host to device, {nbytes / 1e6:.1f} MB uint8 batch, {k} "
+        f"batches a turn, 2 rounds of (ring, ring one thread, pageable, "
+        f"pageable, ring one thread, ring), GB/s of host time: " + "; ".join(
+            f"{w} {[round(v, 2) for v in rate[w]]} (median "
+            f"{np.median(rate[w]):.2f})" for w in turns) + f"; on {card}")
+    pinned = torch.from_numpy(big).pin_memory()
+    pageable = torch.from_numpy(big)
+
+    def h2d_s(src, non_blocking):
+        src.to("cuda", non_blocking=non_blocking)  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            src.to("cuda", non_blocking=non_blocking)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / k / 1e3
+
+    pin_s, page_s = h2d_s(pinned, True), h2d_s(pageable, False)
+    fill_s = {}
+    with ThreadPoolExecutor(ingest.FILL_THREADS) as pool:
+        for threads in (1, ingest.FILL_THREADS):
+            t0 = time.perf_counter()
+            for _ in range(k):
+                if threads == 1:
+                    np.copyto(pinned.numpy(), big)
+                else:
+                    ingest._fill(pinned.numpy(), big, pool)
+            fill_s[threads] = (time.perf_counter() - t0) / k
+    log(f"[ingest] host to device, {nbytes / 1e6:.1f} MB uint8 batch "
+        f"(256 x 224 x 224 x 3), {k} batches: through the ingest (a host "
+        f"copy into a pinned buffer, then the copy to the card, one batch "
+        f"ahead) {nbytes / through / 1e9:.2f} GB/s; the host copy alone "
+        + ", ".join(f"{nbytes / v / 1e9:.2f} GB/s on {n} thread(s)"
+                    for n, v in fill_s.items())
+        + f"; a copy to the card alone from pinned memory "
+        f"{nbytes / pin_s / 1e9:.2f} GB/s, from pageable memory "
+        f"{nbytes / page_s / 1e9:.2f} GB/s (CUDA events); on {card}")
+    del pinned, pageable, big
+
+    # 4. A profiler trace of ingested steps: where each batch's copy runs.
+    # next(it) queues batch i + 1 and hands over batch i; step i then runs
+    # on it. The trace loses the GPU's first records (the copies of
+    # batches 0 and 1, queued by the first next), so batches 2 on are read.
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    path = os.path.join(root, "smoke_ingest_trace.json")
+    steps = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        it = iter_device_batches(source[:steps])
+        for i in range(steps):
+            with record_function(f"ingest.next{i}"):
+                b = next(it)
+            with record_function(f"ingest.step{i}"):
+                resnet.train_step(model, state, b["x"], b["y"], adam)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    traced = _traced_ranges(path, "ingest.")
+    kernels = [traced[f"ingest.step{i}"] for i in range(steps)]
+    spans = [(min(g[2] for g in ks), max(g[3] for g in ks))
+             for ks in kernels]
+    compute = {g[1] for ks in kernels for g in ks}
+    copies = {i + 1: [g for g in traced[f"ingest.next{i}"]
+                      if "HtoD" in g[0]] for i in range(1, steps - 1)}
+    side = {g[1] for c in copies.values() for g in c}
+    t_0 = spans[0][0]
+    log(f"[ingest] profiler trace of {steps} ingested steps: the copies "
+        f"(x, y) of batches {sorted(copies)} on stream(s) {sorted(side)}, "
+        f"the steps' kernels on stream(s) {sorted(compute)}; µs from step "
+        f"0's first kernel; on {card}")
+    for k, c in copies.items():
+        a, z = min(g[2] for g in c), max(g[3] for g in c)
+        over = [j for j, (k0, k1) in enumerate(spans) if a < k1 and z > k0]
+        idle = max([k1 for k0, k1 in spans if k1 <= a], default=t_0)
+        log(f"[ingest]   batch {k} copy [{a - t_0:.1f}, {z - t_0:.1f}] "
+            f"({sum(g[3] - g[2] for g in c):.1f} µs of copies), queued "
+            f"after step {k - 2}'s launches: overlapping the kernels of "
+            f"step(s) {over}, {a - idle:.1f} µs after the last kernel "
+            f"before it ended; step {k}'s kernels [{spans[k][0] - t_0:.1f},"
+            f" {spans[k][1] - t_0:.1f}]")
+        assert len(c) == 2 and z <= spans[k][0] + 5, (k, c, spans[k])
+    assert not side & compute, (side, compute)
+    del state, staged
+    torch.cuda.empty_cache()
+
+
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "sm90")
 SERVE_KINDS = (("flash_fwd", ("flash_fwd",)),
                ("paged_decode", ("paged_decode",)), ("gemm", GEMM_NAMES))
@@ -2023,6 +2586,8 @@ def main() -> int:
              "pipeline": phase_pipeline(card),
              "resume": phase_resume(card)}
     phase_resnet(card)
+    phase_telemetry(card)
+    phase_ingest(card)
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"

@@ -21,9 +21,17 @@ Over a tuple of axes a collective runs on each axis's group in turn (the
 first axis the major one of the combined index, as in JAX), so only the
 mesh's own per-dim groups are used.
 
-The JAX module counts each call for its telemetry
-(``util/device_metrics.record_collective``); that module is not ported yet
-(ROADMAP Queue 1 item 7), so nothing is counted here.
+Each public call counts once in ``ray_tpu_device_collective_calls_total``
+and its tensors' bytes (this rank's input) in
+``ray_tpu_device_collective_bytes_total``, under JAX's op names
+(``util/device_metrics.record_collective``). JAX counts an in-graph op once
+per trace; the port runs eagerly, so it counts every call. A call over a
+tuple of axes counts once, as one call does in JAX (it runs one
+``torch.distributed`` call per axis). ``allreduce_`` counts as
+``allreduce``, ``broadcast_flat`` (and ``broadcast``) as one
+``broadcast`` with the bytes of all its tensors, and ``shift`` as the
+``ppermute`` it calls. A backward pass's collectives are not counted: they
+are the transposes that JAX's trace holds without a call of its own.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from typing import Any, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ..util.device_metrics import record_collective as _count
 from .mesh import mesh_axis_size
 
 AxisName = Union[str, Sequence[str]]
@@ -63,6 +72,10 @@ def _mesh(mesh):
 
 def _axes(axis: AxisName) -> Tuple[str, ...]:
     return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _nbytes(*xs: torch.Tensor) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
 
 
 def _one_axis(axis: AxisName, what: str) -> str:
@@ -269,6 +282,7 @@ def allreduce(x: torch.Tensor, axis: AxisName = "dp", op: str = "sum", *,
               mesh=None) -> torch.Tensor:
     mesh = _mesh(mesh)
     axes = _axes(axis)
+    _count("allreduce", _nbytes(x))
     if op in ("sum", "mean"):
         for a in axes:
             x = _AllReduceSum.apply(x, mesh.get_group(a))
@@ -285,6 +299,7 @@ def allreduce_(x: torch.Tensor, axis: AxisName, *, mesh=None) -> None:
     """Sum ``x`` over the axes in place, outside autograd (for gradient
     buffers)."""
     mesh = _mesh(mesh)
+    _count("allreduce", _nbytes(x))
     for a in _axes(axis):
         dist.all_reduce(x, group=mesh.get_group(a))
 
@@ -294,6 +309,7 @@ def allgather(x: torch.Tensor, axis: AxisName = "dp", *, tiled: bool = True,
     """Concatenate (``tiled``) or stack every rank's ``x`` along
     ``gather_dim``, in axis-index order."""
     mesh = _mesh(mesh)
+    _count("allgather", _nbytes(x))
     if not tiled:
         x = x.unsqueeze(gather_dim)
     for a in reversed(_axes(axis)):  # the minor axis first
@@ -307,6 +323,7 @@ def reducescatter(x: torch.Tensor, axis: AxisName = "dp", *,
     """Sum over the axis, each rank keeping its piece of ``scatter_dim``
     (tiled)."""
     mesh = _mesh(mesh)
+    _count("reducescatter", _nbytes(x))
     for a in _axes(axis):  # the major axis first
         x = _ReduceScatter.apply(x, mesh.get_group(a),
                                  axis_size(a, mesh=mesh), scatter_dim)
@@ -347,6 +364,7 @@ def broadcast_flat(xs: Sequence[torch.Tensor], axis: AxisName = "dp",
     one for each larger tensor; each call's backward reduces one buffer
     for each dtype of its gradients."""
     mesh = _mesh(mesh)
+    _count("broadcast", _nbytes(*xs))
     out = list(xs)
     small = [i for i, x in enumerate(out)
              if x.numel() * x.element_size() < PACK_BYTES]
@@ -366,6 +384,7 @@ def ppermute(x: torch.Tensor, axis: AxisName, perm, *,
     """Send x from axis index ``src`` to ``dst`` for each pair of ``perm``;
     a rank no pair sends to gets zeros."""
     mesh = _mesh(mesh)
+    _count("ppermute", _nbytes(x))
     a = _one_axis(axis, "ppermute")
     perm = tuple((int(s), int(d)) for s, d in perm)
     return _Permute.apply(x, mesh.get_group(a), mesh.get_local_rank(a), perm)
@@ -388,6 +407,7 @@ def all_to_all(x: torch.Tensor, axis: AxisName, *, split_axis: int,
     if not tiled:
         raise ValueError("all_to_all is tiled only")
     mesh = _mesh(mesh)
+    _count("all_to_all", _nbytes(x))
     a = _one_axis(axis, "all_to_all")
     return _AllToAll.apply(x, mesh.get_group(a), axis_size(a, mesh=mesh),
                            split_axis, concat_axis)
@@ -434,6 +454,7 @@ class CollectiveGroup:
         return self._store
 
     def barrier(self, timeout_s: float = 120.0):
+        _count("host_barrier")
         store = self._kv()
         self._epoch += 1
         prefix = f"__collective__/{self.group_name}/barrier/{self._epoch}/"
@@ -454,7 +475,9 @@ class CollectiveGroup:
         store = self._kv()
         key = f"__collective__/{self.group_name}/bcast/{self._epoch}"
         if self.rank == root:
-            store.set(key, pickle.dumps(obj))
+            blob = pickle.dumps(obj)
+            _count("host_broadcast", len(blob))
+            store.set(key, blob)
             return obj
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:

@@ -12,9 +12,12 @@ The pool is written in place. A step that raises may leave it half
 written, so the engine rebuilds it and fails the requests in flight
 (``_reset_cache``), as the JAX engine does for a donated buffer.
 
-The JAX engine's device telemetry (the ``instrumented_jit`` tap ring and
-``flush_taps``) has no counterpart yet: ROADMAP.md lists it as still to
-port.
+Both steps run through ``util/device_metrics.instrumented_step``, as the
+JAX engine's run through ``instrumented_jit``: a new signature counts as a
+compile (``ray_tpu_device_jit_compiles_total{fn="decode_step"|"prefill"}``),
+the decode step keyed by its batch shape and prefill by its bucket. The
+decode step's tap rides a ring of 64 steps, flushed when the loop goes
+idle, in ``stats()`` and at ``shutdown()``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..models.generation import (
 )
 from ..models.llama import LlamaConfig, init_params
 from ..train.checkpoint import Checkpoint
+from ..util.device_metrics import instrumented_step
 
 
 class _Request:
@@ -120,6 +124,22 @@ class LLMEngine:
         self._stop = False
         self._step_count = 0
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        def decode_step(active):
+            return self._decode_step(active)
+
+        def prefill(req, slot, bucket, pages):
+            return self._prefill_step(req, slot, bucket, pages)
+
+        # Compile telemetry, as the JAX engine's: the decode step's key is
+        # the batch shape (one compile), prefill's its bucket (one per
+        # bucket). The decode tap rides a ring flushed once every 64 steps
+        # and at every burst boundary (_loop, stats, shutdown), not per
+        # token: the decode step is host-bound.
+        self._decode = instrumented_step(
+            decode_step, tap_stride=64, signature=lambda active: active.shape)
+        self._prefill = instrumented_step(
+            prefill, signature=lambda req, slot, bucket, pages: bucket)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -150,6 +170,9 @@ class LLMEngine:
         return self.submit(prompt, max_new_tokens, eos_token).result(timeout)
 
     def stats(self) -> Dict[str, Any]:
+        # A telemetry read: publish what the decode tap ring holds, so the
+        # series never lag a long burst.
+        self._decode.flush_taps()
         with self._lock:
             return {
                 "active_slots": len(self._slot_req),
@@ -163,6 +186,7 @@ class LLMEngine:
     def shutdown(self):
         self._stop = True
         self._thread.join(timeout=5)
+        self._decode.flush_taps()
 
     # ---- page accounting ---------------------------------------------------
 
@@ -213,8 +237,8 @@ class LLMEngine:
             bucket *= 2
         return min(bucket, self.max_len)
 
-    def _prefill(self, req: _Request, slot: int, bucket: int,
-                 pages: List[int]) -> int:
+    def _prefill_step(self, req: _Request, slot: int, bucket: int,
+                      pages: List[int]) -> int:
         dev = self.device
         self.cache = self.cache._replace(
             page_table=torch.as_tensor(self._table, device=dev))
@@ -294,12 +318,15 @@ class LLMEngine:
                 with self._lock:
                     active_slots = dict(self._slot_req)
                 if not active_slots:
+                    # A burst boundary: the decode loop went idle, so
+                    # publish the taps the ring holds.
+                    self._decode.flush_taps()
                     time.sleep(0.002)
                     continue
                 active = np.zeros((self.max_batch,), dtype=bool)
                 active[list(active_slots)] = True
                 try:
-                    nxt = self._decode_step(active)
+                    nxt = self._decode(active)
                 except Exception as e:  # noqa: BLE001 — keep serving
                     self._reset_cache(e)
                     continue

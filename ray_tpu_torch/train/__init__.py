@@ -4,6 +4,7 @@ its AdamW (the counterparts of ``ray_tpu/train/compiled_step.py`` and
 (``checkpoint``), and the predictor that scores a checkpoint
 (``predictor``)."""
 
+from ..util import usage_stats as _usage
 from .checkpoint import (  # noqa: F401
     Checkpoint,
     CheckpointManager,
@@ -13,3 +14,5 @@ from .checkpoint import (  # noqa: F401
 from .compiled_step import CompiledTrainStep  # noqa: F401
 from .optim import AdamState, AdamW  # noqa: F401
 from .predictor import Predictor, TorchPredictor  # noqa: F401
+
+_usage.record_library_usage("train")

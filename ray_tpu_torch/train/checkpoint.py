@@ -80,6 +80,7 @@ from ..parallel.sharding import (
     named_sharding,
 )
 from ..util import faults
+from ..util.timeline import record_span
 from .optim import AdamState
 
 # Commit marker + manifest, written last inside the staging directory so
@@ -511,8 +512,7 @@ class Checkpoint:
         whole), and a tensor without axes raises ``ValueError``.
         ``world_size`` then defaults to the mesh's size. A failure on any
         rank raises on every rank and nothing commits."""
-        # The JAX package records a ckpt_save span in the rank's timeline
-        # here; spans wait for the telemetry slice of the port.
+        save_t0 = time.time()
         path = os.path.abspath(path)
         parent = os.path.dirname(path) or "."
         layout = _Layout(mesh, rules)
@@ -556,6 +556,13 @@ class Checkpoint:
             if layout.rank == 0:  # after the commit there is no tmp left
                 shutil.rmtree(tmp, ignore_errors=True)
             raise
+        # The save's window in the rank's timeline, after a commit only.
+        try:
+            record_span(f"ckpt_save:{os.path.basename(path)}", save_t0,
+                        time.time())
+        # A lost span only blanks telemetry, never a commit.
+        except Exception:  # noqa: BLE001
+            pass
         return cls(path)
 
     def as_pytree(self, target: Optional[Any] = None, *,
@@ -574,19 +581,28 @@ class Checkpoint:
         ``logical_axes`` give it, whatever mesh saved them, reading only
         the saved slices that overlap them; as in ``from_pytree``, every
         tensor of one dim or more needs its axes there."""
-        # The JAX package records a ckpt_restore span here; spans wait for
-        # the telemetry slice of the port.
-        delay = faults.fire(faults.CHECKPOINT_IO, op="restore",
-                            path=self.path)
-        if delay:
-            time.sleep(delay)
-        if mesh is not None and device is None:
-            device = mesh.device_type
-        root = os.path.join(self.path, _PAYLOAD)
-        with open(os.path.join(root, _TREE)) as f:
-            structure = json.load(f)["tree"]
-        reader = _Reader(root, _Layout(mesh, rules), resolve_device(device))
-        return reader.node(structure, logical_axes, target)
+        t0 = time.time()
+        try:
+            delay = faults.fire(faults.CHECKPOINT_IO, op="restore",
+                                path=self.path)
+            if delay:
+                time.sleep(delay)
+            if mesh is not None and device is None:
+                device = mesh.device_type
+            root = os.path.join(self.path, _PAYLOAD)
+            with open(os.path.join(root, _TREE)) as f:
+                structure = json.load(f)["tree"]
+            reader = _Reader(root, _Layout(mesh, rules),
+                             resolve_device(device))
+            return reader.node(structure, logical_axes, target)
+        finally:
+            # The restore's window in the rank's timeline, failed or not.
+            try:
+                record_span(f"ckpt_restore:{os.path.basename(self.path)}",
+                            t0, time.time())
+            # A lost span only blanks telemetry, never a restore.
+            except Exception:  # noqa: BLE001
+                pass
 
     def metadata(self) -> Dict:
         p = os.path.join(self.path, "metadata.json")

@@ -35,11 +35,20 @@ gradient. Every data rank computes the same MoE aux loss from the global
 means; its gradient reaches each rank's router logits through the logits'
 gather, whose backward sums over the ranks, so with the loss divided by
 the world size it counts once.
+
+Telemetry, as in the JAX package (``:117-119,161-203``): the step runs
+through ``util/device_metrics.instrumented_step(sample_memory=True)``, so
+each new token shape counts one compile under ``fn="train_step"`` and the
+device memory gauges are published after it (and, throttled, after the
+other steps); ``__call__`` records a ``train_step`` span under the
+thread's active trace; ``compile_stats()`` and ``memory_snapshot()`` give
+the JAX package's keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -65,6 +74,8 @@ from ..parallel.sharding import (
     prune_spec,
     tree_map,
 )
+from ..util import device_metrics
+from ..util.timeline import record_span
 from .optim import AdamState, AdamW, leaves, zeros_like_tree
 
 
@@ -133,6 +144,16 @@ class CompiledTrainStep:
         self.optimizer = optimizer or AdamW(learning_rate)
         self.aux_weight = aux_weight
         self._grads: Optional[Params] = None
+
+        def train_step(params, opt_state, tokens):
+            loss, grads = self.value_and_grad(params, tokens)
+            self.optimizer.update(params, grads, opt_state)
+            return params, opt_state, loss
+
+        # Keyed by the token batch's shape, dtype and device (the only
+        # top-level tensor): the parameter tree is never walked per step.
+        self._step = device_metrics.instrumented_step(train_step,
+                                                      sample_memory=True)
 
     def init(self, generator: Optional[torch.Generator] = None,
              ) -> Tuple[Params, AdamState]:
@@ -214,10 +235,17 @@ class CompiledTrainStep:
                                                 torch.Tensor]:
         """One step: returns (params, opt_state, loss). ``params`` and
         ``opt_state`` are updated in place and returned as the same objects
-        (JAX's donated buffers)."""
-        loss, grads = self.value_and_grad(params, tokens)
-        self.optimizer.update(params, grads, opt_state)
-        return params, opt_state, loss
+        (JAX's donated buffers). Each step records a ``train_step`` span
+        under the thread's active trace (nothing outside one)."""
+        t0 = time.time()
+        try:
+            return self._step(params, opt_state, tokens)
+        finally:
+            try:
+                record_span("train_step", t0, time.time())
+            # A lost span only blanks telemetry, never a step.
+            except Exception:  # noqa: BLE001
+                pass
 
     @property
     def grads(self) -> Optional[Params]:
@@ -228,14 +256,13 @@ class CompiledTrainStep:
     def num_params(self, params: Params) -> int:
         return num_params(params)
 
+    def compile_stats(self) -> Dict[str, Any]:
+        """The step's compile telemetry (also published as the
+        ``ray_tpu_device_jit_*`` series): the token shapes it has run."""
+        return {"fn": "train_step", "executables": self._step.cache_size()}
+
     def memory_snapshot(self) -> Dict[str, Any]:
-        """The card's allocator: bytes allocated now, at peak (since the
-        last ``torch.cuda.reset_peak_memory_stats``) and reserved; {} on
-        the CPU."""
-        if self.device.type != "cuda":
-            return {}
-        return {
-            "allocated_bytes": torch.cuda.memory_allocated(self.device),
-            "peak_bytes": torch.cuda.max_memory_allocated(self.device),
-            "reserved_bytes": torch.cuda.memory_reserved(self.device),
-        }
+        """The step's device allocator with the JAX package's keys (live,
+        peak and reserved bytes, the limit and the fragmentation ratio;
+        ``device_metrics.hbm_snapshot``); {} on the CPU."""
+        return device_metrics.hbm_snapshot(self.device)

@@ -729,3 +729,67 @@ def test_resnet_step_on_the_card_matches_the_cpu(cuda, no_tf32):
     _assert_close_trees(card["opt_state"].mu, opt.mu, 1e-5, "mu")
     _assert_close_trees(card["opt_state"].nu, opt.nu, 1e-5, "nu")
     assert card["opt_state"].count == opt.count == 1 and card["step"] == 1
+
+
+def test_ingest_on_the_card_equals_its_source_bitwise(cuda):
+    """Batches fed through iter_device_batches while the consumer's stream
+    is busy (a sleep kernel, then a kernel reading the batch) as the next
+    batch's copy is queued on the side stream: every batch read on the
+    card equals its source bitwise, in order, with JAX's dtypes, and
+    every tensor of the batch is dropped after use so its memory
+    recycles through the allocator."""
+    from ray_tpu_torch.data import iter_device_batches
+
+    rs = np.random.RandomState(3)
+    src = [{"x": rs.randn(64, 256, 256).astype(np.float32),
+            "y": rs.randint(0, 1000, (64,)),
+            "z": rs.randn(8, 8)} for _ in range(6)]
+    src[-1] = {k: v[:5] for k, v in src[-1].items()}  # a short last batch
+    read = []
+    for batch in iter_device_batches(iter(src), device=cuda):
+        torch.cuda._sleep(20_000_000)  # holds the consumer's stream ~10 ms
+        read.append({k: (t * 1).cpu() for k, t in batch.items()})
+        del batch
+    assert len(read) == len(src)
+    for got, want in zip(read, src):
+        assert got["x"].dtype == torch.float32
+        assert got["y"].dtype == torch.int32
+        assert got["z"].dtype == torch.float32
+        np.testing.assert_array_equal(got["x"].numpy(), want["x"])
+        np.testing.assert_array_equal(got["y"].numpy(),
+                                      want["y"].astype(np.int32))
+        np.testing.assert_array_equal(got["z"].numpy(),
+                                      want["z"].astype(np.float32))
+
+
+def test_hbm_snapshot_and_sample_read_the_allocator(cuda):
+    """hbm_snapshot's byte counts are torch.cuda.memory_stats' at the same
+    moment, its limit the card's total; sample() publishes one series per
+    gauge for gpu:0."""
+    from ray_tpu_torch.util import device_metrics as dm
+    from ray_tpu_torch.util import metrics
+
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    snap = dm.hbm_snapshot(cuda)
+    stats = torch.cuda.memory_stats(cuda)
+    assert snap["bytes_in_use"] == stats["allocated_bytes.all.current"]
+    assert snap["peak_bytes_in_use"] == stats["allocated_bytes.all.peak"]
+    assert snap["bytes_reserved"] == stats["reserved_bytes.all.current"]
+    assert snap["peak_bytes_reserved"] == stats["reserved_bytes.all.peak"]
+    assert snap["bytes_in_use"] >= keep.numel()
+    total = torch.cuda.mem_get_info(cuda)[1]
+    assert abs(snap["bytes_limit"] - total) <= 0.01 * total
+    assert 0.0 <= snap["fragmentation"] <= 1.0
+    assert dm.hbm_snapshot() == dm.hbm_snapshot(cuda.index or 0)
+    (info,) = dm.sample()
+    assert info["device"] == "gpu:0" and info["platform"] == "gpu"
+    report = metrics.get_metrics_report()
+    for name in ("ray_tpu_device_memory_bytes_in_use",
+                 "ray_tpu_device_memory_peak_bytes",
+                 "ray_tpu_device_memory_limit_bytes",
+                 "ray_tpu_device_memory_fragmentation_ratio"):
+        series = report[name]["series"]
+        assert list(series) == [(("device", "gpu:0"), ("node", "local"))]
+    assert report["ray_tpu_device_memory_bytes_in_use"]["series"][
+        (("device", "gpu:0"), ("node", "local"))] == info["bytes_in_use"]
+    del keep

@@ -222,11 +222,16 @@ def fresh_import(tmp_path_factory):
         "import ray_tpu_torch.parallel.dryrun\n"
         "import ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.predictor\n"
         "import ray_tpu_torch.models.resnet, ray_tpu_torch.util.faults\n"
+        "import ray_tpu_torch.util.metrics, ray_tpu_torch.util.prometheus\n"
+        "import ray_tpu_torch.util.timeline, ray_tpu_torch.util.usage_stats\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.ingest\n"
+        "from ray_tpu_torch.util import device_metrics\n"
         "from ray_tpu_torch.ops import _build, flash_attention as fa\n"
         "from ray_tpu_torch.ops import paged_attention as pa\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ray_tpu')]\n"
         "print('foreign', bad)\n"
+        "print('sample', device_metrics.sample(), torch.cuda.is_initialized())\n"
         "q = torch.zeros(1, 4, 2, 8)\n"
         "fa.flash_attention(q, q, q, causal=True)\n"
         "print('plain', _build._lib is None and fa.launches == 0)\n"
@@ -246,6 +251,12 @@ def fresh_import(tmp_path_factory):
 
 def test_import_leaves_jax_and_ray_tpu_out(fresh_import):
     assert "foreign []" in fresh_import
+
+
+def test_device_sampling_does_not_start_cuda(fresh_import):
+    """In a process that never touched CUDA, sampling the device gauges
+    publishes nothing and leaves CUDA uninitialised."""
+    assert "sample [] False" in fresh_import
 
 
 def test_kernel_modules_import_without_nvcc(fresh_import):
