@@ -114,6 +114,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      host-to-device rate of a 38.5 MB uint8 batch through the ingest,
      pinned and pageable; a profiler trace of ingested steps (each copy
      on the side stream, finished before its step's first kernel);
+  12. RLlib's learner layer: (a) the PPO (with and without APPO's ratio
+     clip), A2C, PG, IMPALA (one 200-step fragment), DQN (double Q, plain
+     and dueling heads), DDPG, TD3 and SAC learners at hidden 64 and
+     minibatch 128, three updates on the card against three on the CPU
+     from the same weights (float32, TF32 off; stats within 1e-5
+     relative + 1e-6, weights and targets within 1e-4); (b) PPO learning
+     a numpy CartPole-v1 (CartPole below) with the learner on the card
+     fed by two EnvRunners, as tests/test_rllib.py's PPO test (best mean
+     reward above 60 and above the first by 30 within 25 iterations),
+     then one update_device's ms, an iteration's sampling ms and a
+     profiled update_epochs (device ops, idle share); (c) the ms and
+     device ops of one DQN, SAC, TD3 and IMPALA update;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -2558,6 +2570,392 @@ def phase_breakdown(cfg, params, card: str):
                 moe=_moe_ranges(prof, 3))
 
 
+# ------------------------------------------------ RLlib's learners (12)
+
+class CartPole:
+    """CartPole-v1 in numpy (the card's machine has no gymnasium):
+    gymnasium's classic_control/cartpole.py equations (Euler steps of
+    0.02 s, force 10, pole half-length 0.5, failure at 12 degrees or
+    2.4), its reset draw (uniform in +-0.05 from a PCG64 generator that
+    ``reset(seed=)`` seeds) and the TimeLimit wrapper's truncation at 500
+    steps."""
+
+    obs_dim, num_actions = 4, 2
+    gravity, masscart, masspole, length = 9.8, 1.0, 0.1, 0.5
+    total_mass = masspole + masscart
+    polemass_length = masspole * length
+    force_mag, tau, max_steps = 10.0, 0.02, 500
+    theta_threshold = 12 * 2 * np.pi / 360
+    x_threshold = 2.4
+
+    def __init__(self):
+        self.np_random = None
+        self.state = None
+        self.steps = 0
+
+    def reset(self, seed=None):
+        if seed is not None or self.np_random is None:
+            self.np_random = np.random.Generator(
+                np.random.PCG64(np.random.SeedSequence(seed)))
+        self.state = self.np_random.uniform(low=-0.05, high=0.05, size=(4,))
+        self.steps = 0
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot)
+                * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta)
+                           / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta \
+            / self.total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold
+                          or theta > self.theta_threshold)
+        self.steps += 1
+        return (np.array(self.state, dtype=np.float32), 1.0, terminated,
+                self.steps >= self.max_steps, {})
+
+
+RL_LOW, RL_HIGH = np.float32([-2.0]), np.float32([2.0])  # Pendulum's Box
+
+
+def rl_batch(kind: str, n: int, rng):
+    """A seeded numpy batch of ``n`` rows in the layout ``kind`` takes:
+    CartPole's 4 observations and 2 actions for the discrete learners, 3
+    observations and 1 action in [-2, 2] for the continuous ones."""
+    from ray_tpu_torch.rllib.dqn import DISCOUNT
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+    f32 = np.float32
+    if kind in ("ddpg", "td3", "sac"):
+        return SampleBatch(
+            obs=rng.randn(n, 3).astype(f32),
+            actions=rng.uniform(-2, 2, (n, 1)).astype(f32),
+            rewards=rng.randn(n).astype(f32), dones=rng.rand(n) < 0.1,
+            next_obs=rng.randn(n, 3).astype(f32))
+    obs = rng.randn(n, 4).astype(f32)
+    actions = rng.randint(0, 2, n).astype(np.int32)
+    if kind.startswith("dqn"):
+        b = SampleBatch(obs=obs, actions=actions,
+                        rewards=rng.randn(n).astype(f32),
+                        next_obs=rng.randn(n, 4).astype(f32))
+        b[DISCOUNT] = (0.99 * (rng.rand(n) > 0.1)).astype(f32)
+        if kind == "dqn_dueling":  # a prioritized buffer's weights
+            b["weights"] = rng.uniform(0.2, 1.0, n).astype(f32)
+        return b
+    if kind == "impala":  # one time-major fragment and its bootstrap row
+        return SampleBatch(obs=obs, actions=actions,
+                           action_logp=np.log(rng.uniform(0.2, 0.8, n)
+                                              ).astype(f32),
+                           rewards=rng.randn(n).astype(f32),
+                           dones=rng.rand(n) < 0.05,
+                           bootstrap_obs=rng.randn(4).astype(f32))
+    b = SampleBatch(obs=obs, actions=actions,
+                    advantages=rng.randn(n).astype(f32),
+                    returns=rng.randn(n).astype(f32))
+    if kind.startswith("ppo"):  # update_epochs' keys
+        return {"obs": obs, "actions": actions,
+                "old_logp": np.log(rng.uniform(0.2, 0.8, n)).astype(f32),
+                "adv": b["advantages"], "returns": b["returns"]}
+    return b
+
+
+def rl_learner(kind: str, device):
+    """One learner of each family at the JAX defaults' geometry (hidden
+    64), with ``step(batch, i)`` running its update the way its algorithm
+    does and giving back its stats (tensors or floats)."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.policy import (
+        DeterministicPolicy, DuelingQPolicy, QPolicy,
+        SquashedGaussianPolicy)
+
+    mlp = rllib.MLPPolicy(4, 2, 64, 0)
+    if kind.startswith("ppo"):
+        c = rllib.PPOConfig()
+        lrn = rllib.PPOLearner(mlp, c.lr, c.clip_param, c.vf_loss_coeff,
+                               c.entropy_coeff, device=device,
+                               is_ratio_clip=2.0 if kind == "ppo_is_clip"
+                               else None)
+        return lrn, lambda b, i: lrn.update_device(b)
+    if kind == "a2c":
+        c = rllib.A2CConfig()
+        lrn = rllib.A2CLearner(mlp, c.lr, c.vf_loss_coeff, c.entropy_coeff,
+                               device=device)
+        return lrn, lambda b, i: lrn.update_minibatch(b)
+    if kind == "pg":
+        lrn = rllib.PGLearner(mlp, rllib.PGConfig().lr, device=device)
+        return lrn, lambda b, i: lrn.update_minibatch(b)
+    if kind == "impala":
+        c = rllib.IMPALAConfig()
+        lrn = rllib.IMPALALearner(mlp, c.lr, c.gamma, c.rho_clip, c.c_clip,
+                                  c.vf_loss_coeff, c.entropy_coeff,
+                                  device=device)
+        return lrn, lambda b, i: lrn.update(b)
+    if kind.startswith("dqn"):
+        pol = (DuelingQPolicy if kind == "dqn_dueling" else QPolicy)(
+            4, 2, 64, 0)
+        lrn = rllib.DQNLearner(pol, rllib.DQNConfig().lr, True,
+                               device=device)
+
+        def step(b, i):
+            out = lrn.update(b)
+            if i == 0:
+                lrn.sync_target()
+            return {"loss": out["loss"],
+                    "td_abs_max": float(np.abs(out["td_error"]).max())}
+        return lrn, step
+    if kind == "sac":
+        lrn = rllib.SACLearner(
+            SquashedGaussianPolicy(3, 1, RL_LOW, RL_HIGH, 64, 0),
+            rllib.SACConfig(), 3, 1, RL_LOW, RL_HIGH, device=device)
+        return lrn, lambda b, i: lrn.update(b)
+    cls, cfg = ((rllib.DDPGLearner, rllib.DDPGConfig()) if kind == "ddpg"
+                else (rllib.TD3Learner, rllib.TD3Config()))
+    lrn = cls(DeterministicPolicy(3, 1, RL_LOW, RL_HIGH, 64, 0), cfg, 3, 1,
+              RL_LOW, RL_HIGH, device=device)
+    if kind == "ddpg":
+        return lrn, lambda b, i: lrn.learn_on_batch(b)
+    return lrn, lambda b, i: lrn.learn_on_batch(
+        b, do_actor=i % cfg.policy_delay == 0)
+
+
+RL_KINDS = ("ppo", "ppo_is_clip", "a2c", "pg", "impala", "dqn_double",
+            "dqn_dueling", "ddpg", "td3", "sac")
+
+
+def rl_state(lrn):
+    """{path: numpy array} of every tensor a learner keeps: its params and
+    targets."""
+    from ray_tpu_torch.rllib.core import tree_to_numpy
+
+    def flat(tree, prefix):
+        if isinstance(tree, dict):
+            tree = {str(k): v for k, v in tree.items()}
+        elif isinstance(tree, (list, tuple)):
+            tree = {str(i): v for i, v in enumerate(tree)}
+        else:
+            return {prefix: tree}
+        return {k: v for key, sub in tree.items()
+                for k, v in flat(sub, f"{prefix}.{key}").items()}
+
+    return flat(tree_to_numpy({"params": lrn._params,
+                               "target": getattr(lrn, "_target", {})}), "")
+
+
+def phase_rllib_parity(card: str):
+    """Phase 12a: each learner's three updates on the card against the
+    same three on the CPU from the same weights, float32 with TF32 off:
+    every stat of every update within 1e-5 of the CPU's (relative, with
+    1e-6 absolute for a stat near 0) and every weight and target within
+    1e-4 after the third."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for kind in RL_KINDS:
+            n = 200 if kind == "impala" else 128
+            batches = [rl_batch(kind, n, np.random.RandomState(i))
+                       for i in range(3)]
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                lrn, step = rl_learner(kind, dev)
+                runs[dev] = ([{k: float(v) for k, v in step(b, i).items()}
+                              for i, b in enumerate(batches)], rl_state(lrn))
+            (gs, gw), (cs, cw) = runs["cuda"], runs["cpu"]
+            share = {}
+            for g, c in zip(gs, cs):
+                assert g.keys() == c.keys(), (kind, g, c)
+                for k in c:
+                    share[k] = max(share.get(k, 0.0), abs(g[k] - c[k])
+                                   / (1e-5 * abs(c[k]) + 1e-6))
+            w_err = max(float(np.abs(gw[k] - cw[k]).max()) for k in cw)
+            log(f"[rllib] {kind}: 3 updates card vs CPU; each stat's worst "
+                f"|card - CPU| as a share of its bound 1e-5 |CPU| + 1e-6: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in share.items())
+                + f"; worst weight error {w_err:.2e} (bound 1e-4) over "
+                f"{len(cw)} tensors; on {card}")
+            assert max(share.values()) <= 1.0, (kind, gs, cs)
+            assert w_err <= 1e-4, (kind, w_err)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median wall milliseconds of one call that ends synchronised."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_rllib_ppo(card: str):
+    """Phase 12b: PPO learns CartPole-v1 with the learner on the card, fed
+    by two of the port's EnvRunners (seeds 0 and 1) with
+    tests/test_rllib.py's PPOConfig; then one update_device's ms, the
+    sampling ms of an iteration, and a profiled update_epochs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.rllib import (
+        EnvRunner, MLPPolicy, PPOConfig, PPOLearner, SampleBatch)
+    from ray_tpu_torch.rllib.sample_batch import (
+        ACTIONS, ADVANTAGES, LOGPS, OBS, RETURNS)
+
+    c = (PPOConfig()
+         .env_runners(num_env_runners=2, rollout_fragment_length=256)
+         .training(lr=3e-3, train_batch_size=512, minibatch_size=128,
+                   num_epochs=6)
+         .debugging(seed=0))
+
+    def policy():
+        return MLPPolicy(CartPole.obs_dim, CartPole.num_actions,
+                         c.hidden_size, c.seed)
+
+    runners = [EnvRunner(CartPole, policy, seed=c.seed + i,
+                         rollout_fragment_length=c.rollout_fragment_length,
+                         gamma=c.gamma, lam=c.lambda_)
+               for i in range(c.num_env_runners)]
+    learner = PPOLearner(policy(), c.lr, c.clip_param, c.vf_loss_coeff,
+                         c.entropy_coeff)  # no device given: the card
+    assert learner.device.type == "cuda", learner.device
+    rng = np.random.RandomState(c.seed)
+    first, best, rewards, sample_ms, learn_ms = None, 0.0, [], [], []
+    for _ in range(25):
+        t0 = time.perf_counter()
+        batches = []
+        while sum(b.count for b in batches) < c.train_batch_size:
+            batches.extend(r.sample() for r in runners)
+        batch = SampleBatch.concat(batches)
+        t1 = time.perf_counter()
+        learner.update_epochs(batch, epochs=c.num_epochs,
+                              minibatch_size=c.minibatch_size, rng=rng)
+        weights = learner.get_weights()
+        for r in runners:
+            r.set_weights(weights)
+        t2 = time.perf_counter()
+        sample_ms.append((t1 - t0) * 1e3)
+        learn_ms.append((t2 - t1) * 1e3)
+        stats = [r.episode_stats() for r in runners]
+        means = [s["episode_reward_mean"] for s in stats
+                 if s["episodes_total"] > 0]
+        mean = float(np.mean(means)) if means else 0.0
+        rewards.append(round(mean, 1))
+        if first is None and sum(s["episodes_total"] for s in stats) > 0:
+            first = mean
+        best = max(best, mean)
+        if best > 80:
+            break
+    log(f"[rllib] PPO on CartPole-v1 (numpy copy), 2 EnvRunners x 256 "
+        f"steps, 6 epochs x 4 minibatches of 128, lr 3e-3: mean episode "
+        f"reward by iteration {rewards}; first {first}, best {best:.1f} "
+        f"(need > 60 and > first + 30); an iteration's sampling "
+        f"{np.median(sample_ms):.1f} ms, update_epochs + get_weights "
+        f"{np.median(learn_ms):.1f} ms (medians); on {card}")
+    assert first is not None and best > 60 and best > first + 30, (
+        first, best, rewards)
+
+    mb = {"obs": batch[OBS][:128],
+          "actions": np.asarray(batch[ACTIONS][:128], np.int32),
+          "old_logp": batch[LOGPS][:128], "adv": batch[ADVANTAGES][:128],
+          "returns": batch[RETURNS][:128]}
+    upd = median_ms(lambda: learner.update_device(mb), reps=50)
+    # The minibatch loop queues its updates without waiting for the card:
+    # any synchronising CUDA call in it raises here.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(8):
+            stats = learner.update_device(mb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(v.is_cuda for v in stats.values()), stats
+
+    def epochs():
+        learner.update_epochs(batch, epochs=c.num_epochs,
+                              minibatch_size=c.minibatch_size, rng=rng)
+
+    wall = median_ms(epochs, reps=5, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        epochs()
+        torch.cuda.synchronize()
+    rows = _device_kernels(prof, 1)
+    launches = sum(r[2] for r in rows)
+    idle = max(0.0, 1 - sum(r[1] for r in rows) / wall)
+    n_upd = c.num_epochs * (c.train_batch_size // c.minibatch_size)
+    log(f"[rllib] PPO update_device (minibatch 128, hidden 64): median "
+        f"{upd:.3f} ms synchronised, 8 in a row with no host sync (sync "
+        f"debug mode 'error'); update_epochs ({n_upd} updates): "
+        f"{wall:.2f} ms, {launches:.0f} device ops ({launches / n_upd:.1f} "
+        f"an update), device idle share {idle:.3f}; on {card}")
+    _report(f"PPO update_epochs ({n_upd} updates)", wall, rows,
+            kinds=RL_REPORT_KINDS)
+
+
+RL_REPORT_KINDS = (("optimizer", ("adam",)), ("gemm", GEMM_NAMES),
+                   ("copy", ("memcpy", "memset")))
+
+
+def device_ops(fn) -> float:
+    """The device operations (kernels, copies, fills) of one call of
+    ``fn``, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(r[2] for r in _device_kernels(prof, 1))
+
+
+def phase_rllib_speed(card: str):
+    """Phase 12c: the median synchronised ms and the device operations of
+    one update of DQN, SAC and TD3 (critic and actor step) at minibatch
+    256, and of IMPALA on one 200-step fragment (its V-trace loop runs a
+    step at a time), printed, not held to a limit."""
+    from ray_tpu_torch.rllib.core import to_floats
+
+    out = {}
+    for kind in ("dqn_double", "sac", "td3", "impala"):
+        lrn, _ = rl_learner(kind, "cuda")
+        b = rl_batch(kind, 200 if kind == "impala" else 256,
+                     np.random.RandomState(0))
+        if kind == "td3":
+            def fn():
+                to_floats(lrn.learn_on_batch(b, do_actor=True))
+        else:  # the others' update reads its stats to the host
+            def fn():
+                lrn.update(b)
+        out[kind] = (median_ms(fn), device_ops(fn))
+    log(f"[rllib] one update, hidden 64, stats read to the host: median ms "
+        f"and device ops " + ", ".join(
+            f"{k} {ms:.3f} ({n:.0f})" for k, (ms, n) in out.items())
+        + f" (minibatch 256; IMPALA a 200-step fragment); on {card}")
+
+
+def phase_rllib(card: str):
+    """Phase 12: RLlib's learner layer on the card."""
+    phase_rllib_parity(card)
+    phase_rllib_ppo(card)
+    phase_rllib_speed(card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2588,6 +2986,7 @@ def main() -> int:
     phase_resnet(card)
     phase_telemetry(card)
     phase_ingest(card)
+    phase_rllib(card)
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"

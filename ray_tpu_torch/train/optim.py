@@ -30,17 +30,22 @@ Params = Dict[str, Any]
 
 
 def leaves(tree: Params) -> List[torch.Tensor]:
-    """The tensors of a parameter tree in a fixed order."""
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        out.extend(leaves(v) if isinstance(v, dict) else [v])
-    return out
+    """The tensors of a parameter tree in a fixed order: a dict's entries
+    by sorted key, a list's or tuple's in order (RLlib's trees are dicts of
+    lists of ``(W, b)`` tuples)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
 
 
 def zeros_like_tree(tree: Params) -> Params:
-    return {k: (zeros_like_tree(v) if isinstance(v, dict)
-                else torch.zeros_like(v)) for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: zeros_like_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(zeros_like_tree(v) for v in tree)
+    return torch.zeros_like(tree)
 
 
 @dataclasses.dataclass
@@ -77,7 +82,9 @@ class AdamW:
                               leaves(state.nu)):
             p.grad = g
             opt.state[p] = {
-                "step": torch.tensor(float(state.count), device=p.device),
+                # A fill on the device: torch.tensor(...) would copy from
+                # the host and wait for the stream.
+                "step": torch.full((), float(state.count), device=p.device),
                 "exp_avg": m, "exp_avg_sq": v}
         try:
             opt.step()

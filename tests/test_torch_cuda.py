@@ -793,3 +793,39 @@ def test_hbm_snapshot_and_sample_read_the_allocator(cuda):
     assert report["ray_tpu_device_memory_bytes_in_use"]["series"][
         (("device", "gpu:0"), ("node", "local"))] == info["bytes_in_use"]
     del keep
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kind", ["ppo", "sac"])
+def test_rllib_learner_on_the_card_matches_the_cpu(cuda, no_tf32, kind):
+    """Three updates of the PPO and SAC learners (hidden 64, minibatch
+    128) on the card and on the CPU from the same weights: chip_smoke
+    phase 12a's tolerances, every stat within 1e-5 relative (+1e-6) and
+    every weight and target within 1e-4."""
+    cs = _chip_smoke()
+    batches = [cs.rl_batch(kind, 128, np.random.RandomState(i))
+               for i in range(3)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lrn, step = cs.rl_learner(kind, dev)
+        assert lrn.device.type == dev
+        runs[dev] = ([{k: float(v) for k, v in step(b, i).items()}
+                      for i, b in enumerate(batches)], cs.rl_state(lrn))
+    (gs, gw), (ws, ww) = runs["cuda"], runs["cpu"]
+    for g, w in zip(gs, ws):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]) + 1e-6, (k, g, w)
+    for k in ww:
+        assert np.abs(gw[k] - ww[k]).max() <= 1e-4, k

@@ -225,6 +225,11 @@ def fresh_import(tmp_path_factory):
         "import ray_tpu_torch.util.metrics, ray_tpu_torch.util.prometheus\n"
         "import ray_tpu_torch.util.timeline, ray_tpu_torch.util.usage_stats\n"
         "import ray_tpu_torch.data, ray_tpu_torch.data.ingest\n"
+        "import ray_tpu_torch.rllib\n"
+        "from ray_tpu_torch.rllib import a2c, algorithm, core, ddpg, dqn\n"
+        "from ray_tpu_torch.rllib import env_runner, impala, pg, policy\n"
+        "from ray_tpu_torch.rllib import ppo, replay_buffers, sac\n"
+        "from ray_tpu_torch.rllib import sample_batch, td3\n"
         "from ray_tpu_torch.util import device_metrics\n"
         "from ray_tpu_torch.ops import _build, flash_attention as fa\n"
         "from ray_tpu_torch.ops import paged_attention as pa\n"
