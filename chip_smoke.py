@@ -126,6 +126,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      then one update_device's ms, an iteration's sampling ms and a
      profiled update_epochs (device ops, idle share); (c) the ms and
      device ops of one DQN, SAC, TD3 and IMPALA update;
+  13. RLlib's remaining learners: (a) the R2D2, recurrent PPO, BC
+     (discrete and continuous), MARWIL, CQL, CRR (exp and binary
+     weights), DT, QMIX, MADDPG, SlateQ and AlphaZero updates at their
+     configs' defaults, three on the card against three on the CPU from
+     the same weights and batches under 12a's bounds, R2D2's, QMIX's,
+     SlateQ's and CRR-binary's discrete choices equal first; (b) BC, DT
+     and AlphaZero learning on the card through the ported algorithms on
+     in-process numpy data, to the JAX package's own tests' criteria
+     (tests/test_rllib.py BC, tests/test_rllib_families3.py DT and
+     AlphaZero); (c) the ms and device ops of one update of each;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -2747,8 +2757,10 @@ def rl_state(lrn):
         return {k: v for key, sub in tree.items()
                 for k, v in flat(sub, f"{prefix}.{key}").items()}
 
-    return flat(tree_to_numpy({"params": lrn._params,
-                               "target": getattr(lrn, "_target", {})}), "")
+    # QMIX keeps its hard-synced target tree apart from the polyak ones.
+    target = getattr(lrn, "_target_full", getattr(lrn, "_target", {}))
+    return flat(tree_to_numpy({"params": lrn._params, "target": target}),
+                "")
 
 
 def phase_rllib_parity(card: str):
@@ -2956,6 +2968,554 @@ def phase_rllib(card: str):
     phase_rllib_speed(card)
 
 
+# ------------------------------------------ RLlib's remaining learners (13)
+
+class NumpyDataset:
+    """An in-process dataset of numpy columns with the two methods the
+    offline algorithms call (``count`` and ``iter_batches``), in row order
+    (the card's machine has no Ray Data)."""
+
+    def __init__(self, columns):
+        self.columns = {k: np.asarray(v) for k, v in columns.items()}
+
+    def count(self) -> int:
+        return len(next(iter(self.columns.values())))
+
+    def iter_batches(self, batch_size: int, batch_format: str = "numpy",
+                     drop_last: bool = False):
+        assert batch_format == "numpy", batch_format
+        n = self.count()
+        for start in range(0, n, batch_size):
+            if drop_last and start + batch_size > n:
+                break
+            yield {k: v[start:start + batch_size]
+                   for k, v in self.columns.items()}
+
+
+RL_MORE_KINDS = ("r2d2", "recurrent_ppo", "bc", "bc_continuous", "marwil",
+                 "cql", "crr", "crr_binary", "dt", "qmix", "maddpg",
+                 "slateq", "alpha_zero")
+# The kinds whose update turns on a discrete choice: R2D2's double-Q pick,
+# QMIX's greedy target actions, SlateQ's next slate, CRR's binary weight.
+RL_CHOICE_KINDS = ("r2d2", "qmix", "slateq", "crr_binary")
+# Geometry: CartPole's 4 observations and 2 actions for the discrete
+# single-agent learners; 3 observations and one action in [-1, 1] for the
+# offline continuous ones; 2 agents of 3 observations (QMIX: 2 actions,
+# MADDPG: one in [-1, 1]); a catalog of 12 items of 4 features, 4 user
+# features, slates of 3 (tests/test_rllib_families4.py's recsys); the
+# 9-square TicTacToe board.
+RL_SLATE_ITEMS = np.random.RandomState(7).randn(12, 4).astype(np.float32)
+
+
+def rl_more_sizes(kind: str):
+    """(the batch's row count, the width) of ``kind`` at its config's
+    defaults: the LSTM's width for R2D2 and recurrent PPO, the
+    embedding's for DT, the hidden layers' for the rest."""
+    from ray_tpu_torch import rllib
+
+    if kind == "r2d2":
+        c = rllib.R2D2Config()
+        return c.minibatch_size, c.lstm_size
+    if kind == "recurrent_ppo":
+        c = rllib.RecurrentPPOConfig()
+        return c.minibatch_size // c.seq_len, c.lstm_size
+    if kind == "dt":
+        c = rllib.DTConfig()
+        return c.minibatch_size, c.embed_dim
+    c = rllib.AlgorithmConfig()
+    return c.minibatch_size, c.hidden_size
+
+
+def rl_more_batch(kind: str, n: int, rng, hidden: int):
+    """A seeded numpy batch of ``n`` rows (sequences for R2D2, recurrent
+    PPO and DT) in the layout ``kind``'s update takes."""
+    from ray_tpu_torch import rllib
+
+    f32 = np.float32
+
+    def mask(L):  # whole sequences and ones that end early (zero-padded)
+        m = np.ones((n, L), f32)
+        for r in range(n):
+            if rng.rand() < 0.3:
+                m[r, rng.randint(1, L):] = 0.0
+        return m
+
+    if kind in ("r2d2", "recurrent_ppo"):
+        c = (rllib.R2D2Config() if kind == "r2d2"
+             else rllib.RecurrentPPOConfig())
+        L = c.seq_len
+        m = mask(L)
+        b = {"obs": rng.randn(n, L + (kind == "r2d2"), 4).astype(f32),
+             "actions": rng.randint(0, 2, (n, L)).astype(np.int32),
+             "mask": m,
+             "h0": np.tanh(rng.randn(n, hidden)).astype(f32),
+             "c0": rng.randn(n, hidden).astype(f32)}
+        if kind == "r2d2":
+            b["rewards"] = (rng.randn(n, L) * m).astype(f32)
+            b["dones"] = ((rng.rand(n, L) < 0.05) * m).astype(f32)
+            return b
+        b["old_logp"] = (np.log(rng.uniform(0.2, 0.8, (n, L))) * m
+                         ).astype(f32)
+        b["adv"] = (rng.randn(n, L) * m).astype(f32)
+        b["returns"] = (rng.randn(n, L) * m).astype(f32)
+        return b
+    if kind == "bc":
+        return {"obs": rng.randn(n, 4).astype(f32),
+                "act": rng.randint(0, 2, n).astype(np.int64)}
+    if kind == "bc_continuous":
+        return {"obs": rng.randn(n, 3).astype(f32),
+                "act": rng.uniform(-0.9, 0.9, (n, 1)).astype(f32)}
+    if kind == "marwil":
+        return {"obs": rng.randn(n, 4).astype(f32),
+                "actions": rng.randint(0, 2, n).astype(np.int32),
+                "returns": (rng.randn(n) * 3).astype(f32),
+                "adv_norm": f32(1.7)}
+    if kind in ("cql", "crr", "crr_binary"):
+        return {"obs": rng.randn(n, 3).astype(f32),
+                "act": rng.uniform(-1, 1, (n, 1)).astype(f32),
+                "rew": rng.randn(n).astype(f32),
+                "next_obs": rng.randn(n, 3).astype(f32),
+                "done": (rng.rand(n) < 0.1).astype(f32)}
+    if kind == "dt":
+        K = rllib.DTConfig().context_length
+        m = mask(K)
+        acts = rng.randint(0, 2, (n, K)).astype(np.int32)
+        act_in = np.full((n, K), 2, np.int32)          # 2 = BOS/pad
+        act_in[:, 1:] = acts[:, :-1]
+        start = rng.randint(0, 40, n)
+        return {"obs": (rng.randn(n, K, 3) * m[..., None]).astype(f32),
+                "actions": (acts * m).astype(np.int32),
+                "act_in": act_in,
+                "rtg": (rng.randn(n, K, 1) * 3).astype(f32),
+                "timesteps": ((start[:, None] + np.arange(K)) * m
+                              ).astype(np.int32),
+                "mask": m}
+    if kind == "qmix":
+        obs = rng.randn(n, 2, 3).astype(f32)
+        nxt = rng.randn(n, 2, 3).astype(f32)
+        return {"obs": obs, "state": obs.reshape(n, -1),
+                "actions": rng.randint(0, 2, (n, 2)).astype(np.int32),
+                "rew": rng.randn(n).astype(f32),
+                "done": (rng.rand(n) < 0.1).astype(f32),
+                "next_obs": nxt, "next_state": nxt.reshape(n, -1)}
+    if kind == "maddpg":
+        return {"obs": rng.randn(n, 2, 3).astype(f32),
+                "actions": rng.uniform(-1, 1, (n, 2, 1)).astype(f32),
+                "rew": rng.randn(n, 2).astype(f32),
+                "done": (rng.rand(n) < 0.1).astype(f32),
+                "next_obs": rng.randn(n, 2, 3).astype(f32)}
+    if kind == "slateq":
+        slate = np.stack([rng.choice(12, 3, replace=False)
+                          for _ in range(n)]).astype(np.int32)
+        pos = rng.randint(0, 4, n)                     # 3 = no click
+        clicked = np.where(pos < 3, slate[np.arange(n),
+                                          np.minimum(pos, 2)], -1)
+        return {"user": rng.randn(n, 4).astype(f32), "slate": slate,
+                "clicked": clicked.astype(np.int32),
+                "rew": rng.randn(n).astype(f32),
+                "next_user": rng.randn(n, 4).astype(f32),
+                "done": (rng.rand(n) < 0.1).astype(f32)}
+    assert kind == "alpha_zero", kind
+    pi = rng.dirichlet(np.ones(9) * 0.5, n)
+    return {"s": rng.randint(-1, 2, (n, 9)).astype(f32), "pi": pi,
+            "z": rng.randint(-1, 2, n).astype(f32)}
+
+
+def rl_more_learner(kind: str, device, hidden: int):
+    """(learner, step(batch, i) -> {stat: tensor or float}): one learner of
+    ``kind`` at its config's defaults and width ``hidden``, run the way
+    its algorithm runs it (the target synced after update 0 where the
+    algorithm hard-syncs one)."""
+    import pickle
+
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.core import to_floats
+    from ray_tpu_torch.rllib.policy import QPolicy
+    from ray_tpu_torch.rllib.slateq import _SlatePolicy
+
+    def synced(lrn, update):
+        def step(b, i):
+            out = update(b)
+            if i == 0:
+                lrn.sync_target()
+            return out
+        return step
+
+    if kind == "r2d2":
+        c = rllib.R2D2Config()
+        lrn = rllib.R2D2Learner(4, 2, hidden, c.lr, c.gamma, c.seed,
+                                device=device)
+        return lrn, synced(lrn, lambda b: {"loss": lrn.learn_on_batch(b)})
+    if kind == "recurrent_ppo":
+        c = rllib.RecurrentPPOConfig()
+        c.lstm_size = hidden
+        lrn = rllib.RecurrentPPOLearner(4, 2, c, device=device)
+        return lrn, lambda b, i: {"loss": lrn.learn_on_batch(b)}
+    if kind in ("bc", "bc_continuous"):
+        c = rllib.BCConfig()
+        c.hidden_size = hidden
+        if kind == "bc":
+            c.num_actions = 2
+            probe = {"obs": np.zeros((1, 4), np.float32),
+                     "act": np.zeros(1, np.int64)}
+        else:
+            c.action_space = "continuous"
+            probe = {"obs": np.zeros((1, 3), np.float32),
+                     "act": np.zeros((1, 1), np.float32)}
+        c.offline_data(NumpyDataset(probe), action_column="act")
+        lrn = c.build(device=device)
+        return lrn, lambda b, i: {
+            "loss": float(lrn.learn_on_batch(b["obs"], b["act"]))}
+    if kind == "marwil":
+        c = rllib.MARWILConfig()
+        lrn = rllib.MARWILLearner(
+            rllib.ActorCriticModule(4, 2, hidden, c.seed).init_params(),
+            lr=c.lr, beta=c.beta, vf_coeff=c.vf_coeff, device=device)
+        return lrn, lambda b, i: lrn.update(b)
+    if kind in ("cql", "crr", "crr_binary"):
+        c = rllib.CQLConfig() if kind == "cql" else rllib.CRRConfig()
+        c.hidden_size = hidden
+        if kind == "crr_binary":
+            c.weight_type = "binary"
+        cls = rllib.CQLLearner if kind == "cql" else rllib.CRRLearner
+        lrn = cls(c, 3, 1, device=device)
+        return lrn, lambda b, i: to_floats(lrn.learn_on_batch(b))
+    if kind == "dt":
+        c = rllib.DTConfig()
+        c.num_actions, c.embed_dim = 2, hidden
+        lrn = rllib.DTLearner(c, 3, device=device)
+        return lrn, lambda b, i: {"loss": lrn.train_batch(b)}
+    if kind == "qmix":
+        c = rllib.QMIXConfig()
+        lrn = rllib.QMIXLearner(
+            QPolicy(3, 2, hidden, c.seed).get_weights(), n_agents=2,
+            obs_dim=3, num_actions=2, state_dim=6,
+            embed=c.mixing_embed_dim, lr=c.lr, gamma=c.gamma, seed=c.seed,
+            device=device)
+        return lrn, synced(lrn, lambda b: to_floats(lrn.update_qmix(b)))
+    if kind == "maddpg":
+        c = rllib.MADDPGConfig()
+        lrn = rllib.MADDPGLearner(2, 3, 1, hidden, c.lr, c.tau, c.gamma,
+                                  c.seed, device=device)
+        return lrn, lambda b, i: to_floats(lrn.learn_on_batch(b))
+    if kind == "slateq":
+        c = rllib.SlateQConfig()
+        lrn = rllib.SlateQLearner(
+            _SlatePolicy(4, 4, 12, 3, hidden, c.seed), RL_SLATE_ITEMS, 3,
+            c.lr, c.gamma, device=device)
+        return lrn, synced(lrn, lambda b: {"loss": lrn.learn_on_batch(b)})
+    assert kind == "alpha_zero", kind
+    c = rllib.AlphaZeroConfig()
+    c.hidden_size = hidden
+    assert pickle.loads(pickle.dumps(c.game)) is rllib.TicTacToe
+    lrn = rllib.AlphaZeroLearner(c, device=device)
+    return lrn, lambda b, i: lrn.update(b["s"], b["pi"], b["z"])
+
+
+def rl_more_choices(kind: str, lrn, batch):
+    """The discrete choices the next update of ``kind`` turns on, from the
+    learner's current weights, as numpy."""
+    from ray_tpu_torch.rllib.core import DeterministicActorModule
+
+    dev = lrn.device
+
+    def t(key):
+        return torch.from_numpy(np.ascontiguousarray(batch[key])).to(dev)
+
+    with torch.no_grad():
+        if kind == "r2d2":
+            q = lrn.q_unroll(lrn._params, t("obs"), t("h0"), t("c0"))
+            out = lrn.next_actions(q)
+        elif kind == "qmix":
+            out = lrn.agent_q(lrn._target_full["agent"],
+                              t("next_obs")).argmax(-1)
+        elif kind == "slateq":
+            out = lrn.next_slates(lrn._target, t("next_user"))[0]
+        else:
+            p = lrn._params
+            pi = DeterministicActorModule.forward(p["actor"], t("obs"))
+            out = lrn.advantage(p["q1"], t("obs"), t("act"), pi) > 0
+    return out.cpu().numpy()
+
+
+def dt_split_key_biases(state, D: int):
+    """DT's key biases moved out of a flat state ({path: array}): (the
+    rest, [each layer's key bias]). A key bias is the middle third of a
+    layer's qkv bias. Its gradient is zero in exact arithmetic (softmax
+    does not change when every logit of a row moves by the same q . b_k),
+    so Adam steps each entry by the rounding noise of that gradient, up to
+    lr a step, and two devices (or two frameworks) move it apart. It is
+    held by its effect instead: dt_key_bias_effect."""
+    rest, keys = dict(state), []
+    for path in sorted(p for p in state if p.endswith("qkv.0.1")):
+        b = state[path]
+        rest[path] = np.concatenate([b[:D], b[2 * D:]])
+        keys.append(b[D:2 * D])
+    return rest, keys
+
+
+def dt_key_bias_effect(lrn, keys, batch) -> float:
+    """The largest change of the DT learner's logits on ``batch`` when its
+    key biases are replaced by ``keys`` (one array a layer)."""
+    from ray_tpu_torch.rllib.core import tree_map
+
+    dev, D = lrn.device, lrn._D
+    x = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev)
+         for k in ("rtg", "obs", "act_in", "timesteps")}
+    swapped = tree_map(lambda t: t, lrn._params)
+    for layer, kb in enumerate(keys):
+        (W, b), = swapped[f"attn_{layer}"]["qkv"]
+        b = b.clone()
+        b[D:2 * D] = torch.from_numpy(np.array(kb)).to(dev)
+        swapped[f"attn_{layer}"] = {**swapped[f"attn_{layer}"],
+                                    "qkv": [(W, b)]}
+    with torch.no_grad():
+        args = (x["rtg"], x["obs"], x["act_in"], x["timesteps"])
+        return float((lrn.forward(swapped, *args)
+                      - lrn.forward(lrn._params, *args)).abs().max())
+
+
+def phase_rllib_more_parity(card: str):
+    """Phase 13a: each new learner's three updates on the card against
+    the same three on the CPU, float32 with TF32 off, under 12a's bounds;
+    the discrete choices of R2D2, QMIX, SlateQ and CRR-binary equal
+    before each update."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for kind in RL_MORE_KINDS:
+            n, hidden = rl_more_sizes(kind)
+            batches = [rl_more_batch(kind, n, np.random.RandomState(i),
+                                     hidden) for i in range(3)]
+            runs, choices = {}, {}
+            for dev in ("cuda", "cpu"):
+                lrn, step = rl_more_learner(kind, dev, hidden)
+                stats = []
+                for i, b in enumerate(batches):
+                    if kind in RL_CHOICE_KINDS:
+                        choices.setdefault(dev, []).append(
+                            rl_more_choices(kind, lrn, b))
+                    stats.append({k: float(v) for k, v in
+                                  step(b, i).items()})
+                runs[dev] = (stats, rl_state(lrn), lrn)
+            for g, c in zip(choices.get("cuda", []),
+                            choices.get("cpu", [])):
+                assert np.array_equal(g, c), (kind, g, c)
+            (gs, gw, glrn), (cs, cw, _) = runs["cuda"], runs["cpu"]
+            share = {}
+            for g, c in zip(gs, cs):
+                assert g.keys() == c.keys(), (kind, g, c)
+                for k in c:
+                    share[k] = max(share.get(k, 0.0), abs(g[k] - c[k])
+                                   / (1e-5 * abs(c[k]) + 1e-6))
+            keys = ""
+            if kind == "dt":
+                (gw, gk), (cw, ck) = (dt_split_key_biases(w, hidden)
+                                      for w in (gw, cw))
+                k_err = max(float(np.abs(g - c).max())
+                            for g, c in zip(gk, ck))
+                effect = dt_key_bias_effect(glrn, ck, batches[0])
+                keys = (f"; key biases (zero gradient) apart by "
+                        f"{k_err:.2e}, the card's logits moved "
+                        f"{effect:.2e} by the CPU's (bound 1e-5)")
+                assert effect <= 1e-5, (kind, effect)
+            w_err = max(float(np.abs(gw[k] - cw[k]).max()) for k in cw)
+            picks = (f"{sum(x.size for x in choices['cpu'])} discrete "
+                     "choices equal; " if kind in RL_CHOICE_KINDS else "")
+            log(f"[rllib] {kind}: 3 updates card vs CPU ({n} rows, width "
+                f"{hidden}); {picks}worst share of the stat bound 1e-5 "
+                f"|CPU| + 1e-6 {max(share.values()):.3f} ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in share.items())
+                + f"); worst weight error {w_err:.2e} (bound 1e-4) over "
+                f"{len(cw)} tensors{keys}; on {card}")
+            assert max(share.values()) <= 1.0, (kind, gs, cs)
+            assert w_err <= 1e-4, (kind, w_err)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def bc_data(rng):
+    """tests/test_rllib.py's BC data: 1,024 rows of 4 observations and the
+    expert's action (obs0 + obs1 > 0), and 256 held-out rows."""
+    obs = rng.randn(1024, 4).astype(np.float32)
+    test_obs = rng.randn(256, 4).astype(np.float32)
+    return (NumpyDataset({"obs": obs, "action": (obs[:, 0] + obs[:, 1] > 0
+                                                 ).astype(np.int64)}),
+            test_obs, (test_obs[:, 0] + test_obs[:, 1] > 0))
+
+
+def dt_data(rng):
+    """tests/test_rllib_families3.py's DT data: 120 episodes of length 6;
+    the signal is the observation, even episodes act on its sign (+1 a
+    step), odd ones against it (-1)."""
+    cols = {"episode_id": [], "t": [], "obs": [], "action": [],
+            "reward": []}
+    for ep in range(120):
+        for t in range(6):
+            sig = float(rng.choice([-1.0, 1.0]))
+            want = 1 if sig > 0 else 0
+            act = want if ep % 2 == 0 else 1 - want
+            for k, v in (("episode_id", ep), ("t", t),
+                         ("obs", np.asarray([sig], np.float32)),
+                         ("action", act),
+                         ("reward", 1.0 if act == want else -1.0)):
+                cols[k].append(v)
+    return NumpyDataset(cols)
+
+
+def dt_accuracy(algo, trials: int = 40) -> float:
+    """The share of fresh signals on which DT, conditioned on the
+    expert's return (+6), picks the right action."""
+    correct = 0
+    for i in range(trials):
+        sig = 1.0 if i % 2 == 0 else -1.0
+        a = algo.compute_action({"obs": [np.asarray([sig], np.float32)],
+                                 "actions": [], "rewards": []},
+                                target_return=6.0)
+        correct += int(a == (1 if sig > 0 else 0))
+    return correct / trials
+
+
+def alpha_zero_iterations(learner, cfg, iters: int, actors=2):
+    """``iters`` of the JAX package's AlphaZero.train() in one process:
+    local _SelfPlayActors (seeds seed + i) play games_per_iteration games
+    with the learner's weights, then train_batches_per_iteration
+    minibatches drawn from the replay by RandomState(seed + 17) update it.
+    Gives each iteration's last stats and new positions."""
+    import pickle
+
+    from ray_tpu_torch.rllib.alpha_zero import _SelfPlayActor
+
+    players = [_SelfPlayActor(pickle.dumps(cfg.game), cfg.num_simulations,
+                              cfg.seed + i) for i in range(actors)]
+    rng = np.random.RandomState(cfg.seed + 17)
+    replay, out = [], []
+    for _ in range(iters):
+        weights = learner.get_weights()
+        for p in players:
+            p.set_weights(weights)
+        per = max(1, cfg.games_per_iteration // actors)
+        results = [p.play_games(per) for p in players]
+        replay.extend(results)
+        while sum(len(r[0]) for r in replay) > cfg.replay_window \
+                and len(replay) > 1:
+            replay.pop(0)
+        S, PI, Z = (np.concatenate([r[k] for r in replay])
+                    for k in range(3))
+        for _ in range(cfg.train_batches_per_iteration):
+            idx = rng.randint(0, len(S), min(cfg.minibatch_size, len(S)))
+            stats = learner.update(S[idx], PI[idx], Z[idx])
+        out.append({**stats, "num_positions": len(S),
+                    "new_positions": sum(len(r[0]) for r in results)})
+    return out, (S, PI, Z)
+
+
+def alpha_zero_loss(learner, positions) -> float:
+    """The learner's total loss over ``positions`` (S, PI, Z), no step."""
+    from ray_tpu_torch.rllib.core import to_device
+
+    with torch.no_grad():
+        loss, _ = learner._loss(learner._params, *(
+            to_device(x, learner.device) for x in positions))
+    return float(loss)
+
+
+def phase_rllib_more_learn(card: str):
+    """Phase 13b: BC, DT and AlphaZero learn on the card through the
+    ported algorithms, to the JAX package's own tests' criteria."""
+    from ray_tpu_torch import rllib
+
+    t0 = time.perf_counter()
+    ds, test_obs, want = bc_data(np.random.RandomState(0))
+    bc = (rllib.BCConfig().offline_data(ds)
+          .training(lr=5e-3, minibatch_size=256, num_actions=2).build())
+    assert bc.device.type == "cuda", bc.device
+    for _ in range(25):
+        last = bc.train()
+    logits, _ = bc.get_policy().logits_and_value(test_obs)
+    acc = float((logits.argmax(axis=1) == want).mean())
+    t1 = time.perf_counter()
+    log(f"[rllib] BC on the card, 25 passes over 1,024 rows (lr 5e-3, "
+        f"minibatch 256): loss {last['loss']:.4f} (need < 0.3), held-out "
+        f"accuracy {acc:.3f} on 256 rows (need > 0.9); "
+        f"{(t1 - t0) * 1e3:.0f} ms; on {card}")
+    assert last["num_rows_trained"] == 1024 and last["loss"] < 0.3, last
+    assert acc > 0.9, acc
+
+    dt = (rllib.DTConfig().offline_data(dt_data(np.random.RandomState(0)))
+          .training(lr=2e-3, minibatch_size=64, num_actions=2,
+                    context_length=6).debugging(seed=0).build())
+    assert dt.learner.device.type == "cuda", dt.learner.device
+    losses = [dt.train()["loss"] for _ in range(15)]
+    acc = dt_accuracy(dt)
+    t2 = time.perf_counter()
+    log(f"[rllib] DT on the card, 120 episodes of 6, 15 iterations of 32 "
+        f"minibatches of 64: loss by iteration "
+        f"{[round(x, 4) for x in losses]} (need last < first), accuracy "
+        f"{acc:.3f} on 40 fresh signals at target return 6 (need > 0.85); "
+        f"{(t2 - t1) * 1e3:.0f} ms; on {card}")
+    assert losses[-1] < losses[0], losses
+    assert acc > 0.85, acc
+
+    cfg = (rllib.AlphaZeroConfig().training(lr=3e-3, minibatch_size=128)
+           .debugging(seed=0))
+    cfg.num_simulations = 32
+    cfg.games_per_iteration = 10
+    cfg.train_batches_per_iteration = 12
+    learner = rllib.AlphaZeroLearner(cfg)
+    assert learner.device.type == "cuda", learner.device
+    initial = rllib.AlphaZeroLearner(cfg)
+    its, replay = alpha_zero_iterations(learner, cfg, 2)
+    before, after = (alpha_zero_loss(x, replay) for x in (initial, learner))
+    t3 = time.perf_counter()
+    log(f"[rllib] AlphaZero on the card, 2 iterations of 10 TicTacToe "
+        f"self-play games (32 simulations a move, two local "
+        f"_SelfPlayActors) and 12 minibatches of 128: total loss over the "
+        f"{len(replay[0])} positions of both iterations {before:.4f} with "
+        f"the initial net -> {after:.4f} trained (need it to fall); each "
+        f"iteration's last minibatch: total {its[0]['total_loss']:.4f}, "
+        f"{its[1]['total_loss']:.4f}, policy {its[0]['policy_loss']:.4f}, "
+        f"{its[1]['policy_loss']:.4f}, value {its[0]['value_loss']:.4f}, "
+        f"{its[1]['value_loss']:.4f}; positions {its[0]['num_positions']}"
+        f" -> {its[1]['num_positions']}; {(t3 - t2) * 1e3:.0f} ms; on "
+        f"{card}")
+    assert after < before, (before, after, its)
+    assert its[1]["num_positions"] > its[0]["new_positions"], its
+
+
+def phase_rllib_more_speed(card: str):
+    """Phase 13c: the median synchronised ms and the device operations of
+    one update of each new learner at its config's defaults, stats read
+    to the host; printed, not held to a limit."""
+    out = {}
+    for kind in RL_MORE_KINDS:
+        n, hidden = rl_more_sizes(kind)
+        lrn, step = rl_more_learner(kind, "cuda", hidden)
+        b = rl_more_batch(kind, n, np.random.RandomState(0), hidden)
+
+        def fn():
+            step(b, 1)  # i = 1: no target sync, the update alone
+
+        out[kind] = (n, median_ms(fn), device_ops(fn))
+    log(f"[rllib] one update at the configs' defaults, stats read to the "
+        f"host: median ms and device ops " + ", ".join(
+            f"{k} {ms:.3f} ({ops:.0f}; {n} rows)"
+            for k, (n, ms, ops) in out.items())
+        + f" (R2D2: sequences of 13 steps, width 32; recurrent PPO: "
+        f"sequences of 8, width 32; DT: windows of 8, width 64; the rest "
+        f"width 64); on {card}")
+
+
+def phase_rllib_more(card: str):
+    """Phase 13: RLlib's remaining learners on the card."""
+    phase_rllib_more_parity(card)
+    phase_rllib_more_learn(card)
+    phase_rllib_more_speed(card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2987,6 +3547,7 @@ def main() -> int:
     phase_telemetry(card)
     phase_ingest(card)
     phase_rllib(card)
+    phase_rllib_more(card)
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"

@@ -120,6 +120,13 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take_along_axis(x, idx[..., None], -1)[..., 0]``: the entry
+    of the last axis that ``idx`` picks (int32 indices; ``gather`` wants
+    int64)."""
+    return x.gather(-1, idx.long()[..., None])[..., 0]
+
+
 def to_floats(stats: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """Device stats as Python floats, through one copy to the host."""
     if not stats:

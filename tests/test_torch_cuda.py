@@ -829,3 +829,41 @@ def test_rllib_learner_on_the_card_matches_the_cpu(cuda, no_tf32, kind):
             assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]) + 1e-6, (k, g, w)
     for k in ww:
         assert np.abs(gw[k] - ww[k]).max() <= 1e-4, k
+
+
+@pytest.mark.parametrize("kind", _chip_smoke().RL_MORE_KINDS)
+def test_rllib_more_learner_on_the_card_matches_the_cpu(cuda, no_tf32,
+                                                        kind):
+    """Each learner of chip_smoke phase 13 (width 16, 8 sequences or 32
+    rows) defaults to the card and takes three updates there and on the
+    CPU from the same weights and batches: its discrete choices equal,
+    every stat within 1e-5 relative (+1e-6), every weight and target
+    within 1e-4 (DT's key biases, whose gradient is zero in exact
+    arithmetic, held by their effect on the logits)."""
+    cs = _chip_smoke()
+    n = 8 if kind in ("r2d2", "recurrent_ppo", "dt") else 32
+    batches = [cs.rl_more_batch(kind, n, np.random.RandomState(i), 16)
+               for i in range(3)]
+    assert cs.rl_more_learner(kind, None, 16)[0].device.type == "cuda"
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lrn, step = cs.rl_more_learner(kind, dev, 16)
+        choices, stats = [], []
+        for i, b in enumerate(batches):
+            if kind in cs.RL_CHOICE_KINDS:
+                choices.append(cs.rl_more_choices(kind, lrn, b))
+            stats.append({k: float(v) for k, v in step(b, i).items()})
+        runs[dev] = (choices, stats, cs.rl_state(lrn), lrn)
+    (gc, gs, gw, glrn), (wc, ws, ww, _) = runs["cuda"], runs["cpu"]
+    for g, w in zip(gc, wc):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(gs, ws):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]) + 1e-6, (k, g, w)
+    if kind == "dt":
+        (gw, _), (ww, keys) = (cs.dt_split_key_biases(w, 16)
+                               for w in (gw, ww))
+        assert cs.dt_key_bias_effect(glrn, keys, batches[0]) <= 1e-5
+    for k in ww:
+        assert np.abs(gw[k] - ww[k]).max() <= 1e-4, k

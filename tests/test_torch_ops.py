@@ -230,6 +230,9 @@ def fresh_import(tmp_path_factory):
         "from ray_tpu_torch.rllib import env_runner, impala, pg, policy\n"
         "from ray_tpu_torch.rllib import ppo, replay_buffers, sac\n"
         "from ray_tpu_torch.rllib import sample_batch, td3\n"
+        "from ray_tpu_torch.rllib import alpha_zero, bc, cql, crr, dt\n"
+        "from ray_tpu_torch.rllib import maddpg, marwil, qmix, r2d2\n"
+        "from ray_tpu_torch.rllib import recurrent_ppo, slateq\n"
         "from ray_tpu_torch.util import device_metrics\n"
         "from ray_tpu_torch.ops import _build, flash_attention as fa\n"
         "from ray_tpu_torch.ops import paged_attention as pa\n"

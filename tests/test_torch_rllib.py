@@ -528,15 +528,20 @@ def test_configs_build_raises_naming_the_runtime():
 
 
 def test_learners_run_on_the_card_by_default():
-    """With no device given every learner takes the card; without one it
-    raises (no quiet CPU fallback)."""
-    for kind in chip_smoke.RL_KINDS:
+    """With no device given every learner takes the card, those of
+    chip_smoke phase 13 too; without one it raises (no quiet CPU
+    fallback)."""
+    makers = [lambda k=k: chip_smoke.rl_learner(k, None)
+              for k in chip_smoke.RL_KINDS]
+    makers += [lambda k=k: chip_smoke.rl_more_learner(k, None, 16)
+               for k in chip_smoke.RL_MORE_KINDS]
+    for make in makers:
         if torch.cuda.is_available():
-            lrn, _ = chip_smoke.rl_learner(kind, None)
-            assert lrn.device.type == "cuda", kind
+            lrn, _ = make()
+            assert lrn.device.type == "cuda", lrn
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
-                chip_smoke.rl_learner(kind, None)
+                make()
 
 
 # ------------------------------------------------------------- the slice
