@@ -136,6 +136,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      in-process numpy data, to the JAX package's own tests' criteria
      (tests/test_rllib.py BC, tests/test_rllib_families3.py DT and
      AlphaZero); (c) the ms and device ops of one update of each;
+  14. the port's runtime and trainer: (a) ray_tpu_torch.init(num_cpus=2)
+     on the card: a num_gpus=1 task sees the driver's own
+     CUDA_VISIBLE_DEVICES entry and its flash forward (B = 1, S = 512,
+     bf16, seeded) equals the driver's bitwise with one launch counted in
+     the worker; a CPU task sees no card; a second GPU task waits while a
+     GPU actor holds the card and runs once it is killed; worker start and
+     the median of 100 no-op task round trips and actor calls printed;
+     (b) llama3_8b cut to 2 layers (phase 8b's geometry), B = 1, S = 2048,
+     4 steps straight in the driver, then TorchTrainer(trainer_loop,
+     ScalingConfig(num_workers=1, use_gpu=True), max_failures=1) in a GPU
+     worker: checkpoints committed after steps 1 and 3, the first attempt
+     dies (os._exit) at step 2, the second resumes from step 1's: the 4
+     losses equal the straight run's, the step-3 checkpoint within 1e-6,
+     one restart, the worker's flash launches (reported by the loop, since
+     they happen in another process) above 0; no worker outlives
+     shutdown();
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -3516,6 +3532,313 @@ def phase_rllib_more(card: str):
     phase_rllib_more_speed(card)
 
 
+# ------------------------------------------- the runtime and trainer (14)
+
+RUNTIME_FLASH = dict(B=1, S=512, H=32, Hkv=8, D=128, seed=14)
+TRAINER_STEPS = 4
+TRAINER_CKPT_STEPS = (1, 3)
+TRAINER_CRASH_STEP = 2
+
+
+def runtime_flash_inputs(device):
+    """Phase 14a's seeded bf16 flash inputs, [B, S, H, D]."""
+    c = RUNTIME_FLASH
+    rs = np.random.RandomState(c["seed"])
+
+    def draw(h):
+        a = rs.standard_normal((c["B"], c["S"], h, c["D"]))
+        return torch.tensor(a, dtype=torch.bfloat16, device=device)
+
+    return draw(c["H"]), draw(c["Hkv"]), draw(c["Hkv"])
+
+
+def runtime_gpu_task():
+    """A num_gpus=1 task: what it sees, and a flash forward on the card."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = runtime_flash_inputs("cuda")
+    fa.launches = 0
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+            torch.cuda.get_device_name(0), out.cpu(), fa.launches)
+
+
+def runtime_cpu_task():
+    return os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.is_available()
+
+
+def runtime_noop():
+    return None
+
+
+class RuntimeNoop:
+    """A no-op actor (one per worker process)."""
+
+    def noop(self):
+        return None
+
+
+def trainer_config():
+    from ray_tpu_torch.models import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=2)
+
+
+def trainer_tokens(cfg, device):
+    """Phase 14b's seeded token batches, B = 1, S = 2048 (+1 for targets)."""
+    rs = np.random.RandomState(14)
+    return [torch.tensor(rs.randint(0, cfg.vocab_size, (1, 2049)),
+                         dtype=torch.int32, device=device)
+            for _ in range(TRAINER_STEPS)]
+
+
+def trainer_loop(config):
+    """Phase 14b's train loop, run by TorchTrainer in a GPU worker: the
+    2-layer 8B at B = 1, S = 2048 from seed 0, a committed checkpoint after
+    steps 1 and 3; the first attempt dies (os._exit) at step 2, the next
+    resumes from step 1's checkpoint. Each report carries the loss, the
+    step's ms and this process's flash launch counts since the loop began."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import Checkpoint, CompiledTrainStep
+
+    sess = train.get_session()
+    assert train.get_device().type == "cuda"
+    train_launches(reset=True)
+    cfg = trainer_config()
+    step = CompiledTrainStep(cfg, learning_rate=1e-3)
+    start = sess.get_checkpoint()
+    if start is not None:
+        state = start.as_pytree()
+        params, opt, first = state["params"], state["opt_state"], \
+            state["step"] + 1
+    else:
+        params, opt = step.init(torch.Generator(device="cuda").manual_seed(0))
+        first = 0
+    toks = trainer_tokens(cfg, "cuda")
+    for i in range(first, TRAINER_STEPS):
+        if i == TRAINER_CRASH_STEP and not os.path.exists(config["marker"]):
+            open(config["marker"], "w").close()
+            os._exit(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, toks[i])
+        loss = loss.item()
+        ms = (time.perf_counter() - t0) * 1e3
+        ckpt = None
+        if i in TRAINER_CKPT_STEPS:
+            ckpt = Checkpoint.from_pytree(
+                {"params": params, "opt_state": opt, "step": i},
+                sess.checkpoint_dir(i), step=i)
+        train.report({"step": i, "loss": loss, "step_ms": ms,
+                      "pid": os.getpid(), **train_launches()},
+                     checkpoint=ckpt)
+
+
+def alive_pids(pids):
+    """The pids of ``pids`` that are still running (zombies count dead)."""
+    out = []
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    out.append(pid)
+        except OSError:
+            pass
+    return out
+
+
+def phase_runtime(card: str):
+    """Phase 14a: the port's runtime on the card: GPU and CPU tasks in
+    their own worker types, a GPU task's flash forward equal to the
+    driver's bitwise, the card held by a GPU actor, start and round-trip
+    times."""
+    import chip_smoke as cs  # the functions travel as chip_smoke.<name>
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_context import current_runtime
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    rt.init(num_cpus=2)
+    res = rt.cluster_resources()
+    assert res.get("GPU") == torch.cuda.device_count(), res
+    t0 = time.perf_counter()
+    visible, name, out, launches = rt.get(
+        rt.remote(cs.runtime_gpu_task).options(num_gpus=1).remote())
+    first_gpu_s = time.perf_counter() - t0
+    q, k, v = runtime_flash_inputs("cuda")
+    want = fa.flash_attention(q, k, v, causal=True).cpu()
+    bitwise = torch.equal(out, want)
+    cpu_visible, cpu_cuda = rt.get(rt.remote(cs.runtime_cpu_task).remote())
+    driver_visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    log(f"[runtime] {res}; GPU task: CUDA_VISIBLE_DEVICES={visible!r} "
+        f"(driver's {driver_visible!r}), {name}, flash forward B=1 S=512 "
+        f"bf16 {'bitwise equal to' if bitwise else 'DIFFERS from'} the "
+        f"driver's, {launches} launch in the worker, first GPU task "
+        f"{first_gpu_s:.2f} s with the worker's start; CPU task: "
+        f"CUDA_VISIBLE_DEVICES={cpu_visible!r}, cuda available {cpu_cuda}; "
+        f"on {card}")
+    assert bitwise and launches == 1, (bitwise, launches)
+    assert name == torch.cuda.get_device_name(0)
+    want_visible = driver_visible.split(",")[0].strip() \
+        if driver_visible else "0"
+    assert visible == want_visible, (visible, want_visible)
+    assert cpu_visible == "" and cpu_cuda is False
+
+    holder = rt.remote(cs.RuntimeNoop).options(num_gpus=1).remote()
+    rt.get(holder.noop.remote())
+    waiting = rt.remote(cs.runtime_cpu_task).options(num_gpus=1).remote()
+    ready, _ = rt.wait([waiting], timeout=1.0)
+    held = not ready
+    rt.kill(holder)
+    after = rt.get(waiting, timeout=120)
+    log(f"[runtime] a second num_gpus=1 task while a GPU actor holds the "
+        f"card: {'not ready' if held else 'READY'} after wait(timeout=1.0);"
+        f" after kill() it ran and saw CUDA_VISIBLE_DEVICES={after[0]!r}")
+    assert held and after[1] is True, (held, after)
+
+    starts = {}
+    for kind, opts in (("gpu", {"num_gpus": 1}), ("cpu", {})):
+        t0 = time.perf_counter()
+        a = rt.remote(cs.RuntimeNoop).options(**opts).remote()
+        rt.get(a.__rtpu_ping__.remote())
+        starts[kind] = (time.perf_counter() - t0) * 1e3
+        if kind == "gpu":
+            rt.kill(a)
+        else:
+            actor = a
+
+    def median_wall_ms(fn, n=100):
+        fn()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    noop = rt.remote(cs.runtime_noop)
+    task_ms = median_wall_ms(lambda: rt.get(noop.remote()))
+    call_ms = median_wall_ms(lambda: rt.get(actor.noop.remote()))
+    log(f"[runtime] worker start to a first actor call: GPU-typed "
+        f"{starts['gpu']:.1f} ms, CPU-typed {starts['cpu']:.1f} ms; median "
+        f"of 100 no-op task round trips {task_ms:.3f} ms, of 100 no-op actor"
+        f" calls {call_ms:.3f} ms (host times, not held); on {card}")
+    pids = current_runtime().worker_pids()
+    rt.shutdown()
+    time.sleep(0.2)
+    left = alive_pids(pids)
+    log(f"[runtime] shutdown(): {len(pids)} worker processes, alive after: "
+        f"{left}")
+    assert not left, left
+
+
+def phase_trainer(card: str):
+    """Phase 14b: the 2-layer 8B trained by TorchTrainer in a GPU worker,
+    across a crash and a restart from the step-1 checkpoint, against 4
+    steps straight in the driver."""
+    import shutil
+
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_context import current_runtime
+    from ray_tpu_torch.train import (
+        CompiledTrainStep, FailureConfig, RunConfig, ScalingConfig,
+        TorchTrainer)
+
+    cfg = trainer_config()
+    toks = trainer_tokens(cfg, "cuda")
+    step = CompiledTrainStep(cfg, learning_rate=1e-3)
+    params, opt = step.init(torch.Generator(device="cuda").manual_seed(0))
+    straight, driver_ms = [], []
+    for t in toks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, t)
+        straight.append(loss.item())
+        driver_ms.append((time.perf_counter() - t0) * 1e3)
+    state = {"params": params, "opt_state": opt}
+    nbytes = tree_bytes(state)
+    ref = [t.cpu() for t in tree_tensors(state)]
+    del params, opt, step, state, toks, loss
+    torch.cuda.empty_cache()
+
+    path = ckpt_dir("trainer", 2 * nbytes, card)
+    restarts0 = counts_by("ray_tpu_train_restarts_total", "reason")
+    rt.init(num_cpus=2)
+    try:
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            cs.trainer_loop,
+            train_loop_config={"marker": os.path.join(path, "crashed")},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(
+                storage_path=path,
+                failure_config=FailureConfig(max_failures=1)),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        pids = current_runtime().worker_pids()
+        assert result.error is None, result.error
+        hist = result.metrics_history
+        got = result.checkpoint.as_pytree(device="cpu")
+        worst = 0.0
+        for a, b in zip(tree_tensors({"params": got["params"],
+                                      "opt_state": got["opt_state"]}), ref):
+            top = b.abs().max().item()
+            if top:
+                worst = max(worst, (a.float() - b.float()).abs().max().item()
+                            / top)
+        ckpt_step = got["step"]
+        del got, ref
+    finally:
+        rt.shutdown()
+        shutil.rmtree(path, ignore_errors=True)
+    time.sleep(0.2)
+    left = alive_pids(pids)
+    losses = [m["loss"] for m in hist]
+    restarts = grown(counts_by("ray_tpu_train_restarts_total", "reason"),
+                     restarts0)
+    from ray_tpu_torch.util import metrics
+
+    rec = metrics.get_metrics_report()["ray_tpu_train_recovery_seconds"][
+        "series"][()]
+    launches = {k: hist[-1][k] for k in TRAIN_COUNTERS}
+    worker_ms = [m["step_ms"] for m in hist]
+    # Each process's first step warms the card up (cuBLAS handles, the
+    # allocator); the steady steps are the others.
+    steady_worker = [m["step_ms"] for m in hist
+                     if m["step"] not in (0, TRAINER_CRASH_STEP)]
+    steady_driver = driver_ms[1:]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, straight))
+    exact = losses == straight
+    log(f"[trainer] TorchTrainer, 2-layer llama3_8b ({nbytes / 1e9:.3f} GB "
+        f"of state), B=1 S=2048, a GPU worker, os._exit(1) at step 2, "
+        f"restarted from step 1's checkpoint: fit {fit_s:.2f} s wall, "
+        f"recovery {rec['sum']:.3f} s (ray_tpu_train_recovery_seconds, "
+        f"{rec['count']} observation), restarts {restarts}; steps reported "
+        f"{[m['step'] for m in hist]} by pids {[m['pid'] for m in hist]}")
+    log(f"[trainer] losses {losses} against 4 steps straight in the driver "
+        f"{straight}: {'identical' if exact else 'differ'}; worst loss "
+        f"relative difference {loss_rel:.3e}; step-{ckpt_step} checkpoint "
+        f"against the straight run's params and moments: worst max|d| / "
+        f"max|ref| {worst:.3e} (tol 1e-6); worker launches after the "
+        f"restart {launches}; worker processes alive after shutdown {left}")
+    log(f"[trainer] median steady step ms in the worker "
+        f"{np.median(steady_worker):.3f} against in the driver "
+        f"{np.median(steady_driver):.3f} (each process's first step, its "
+        f"warm-up, left out; all steps: worker "
+        f"{[round(x, 3) for x in worker_ms]}, driver "
+        f"{[round(x, 3) for x in driver_ms]}); on {card}")
+    assert len(losses) == TRAINER_STEPS and [m["step"] for m in hist] == \
+        list(range(TRAINER_STEPS)), hist
+    assert exact or loss_rel <= 1e-6, (losses, straight)
+    assert ckpt_step == TRAINER_CKPT_STEPS[-1] and worst <= 1e-6, worst
+    assert restarts == {"error": 1.0}, restarts
+    assert all(launches[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv_per_head")), launches
+    assert not left, left
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3548,6 +3871,9 @@ def main() -> int:
     phase_ingest(card)
     phase_rllib(card)
     phase_rllib_more(card)
+    torch.cuda.empty_cache()  # phase 14's worker shares the card
+    phase_runtime(card)
+    train["trainer"] = phase_trainer(card)
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"

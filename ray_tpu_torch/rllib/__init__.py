@@ -10,8 +10,8 @@ numpy policies, the replay buffers, the MCTS self-play) is the JAX
 package's, copied. The offline algorithms (BC, MARWIL, CQL, CRR, DT) train
 from any dataset object with ``iter_batches``: their ``*Config.build()``
 returns the algorithm. The online algorithms' sampling loops stand on the
-actor runtime, which is not ported: their ``*Config.build()`` and
-``LearnerGroup(remote=True)`` raise.
+actor runtime; the port's runtime (``core``) does not carry them yet, so
+their ``*Config.build()`` and ``LearnerGroup(remote=True)`` raise.
 """
 
 from ..util import usage_stats as _usage

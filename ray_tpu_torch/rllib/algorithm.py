@@ -3,9 +3,10 @@ config extends.
 
 Ref analogue: rllib/algorithms/algorithm_config.py AlgorithmConfig. The
 counterpart of ``ray_tpu/rllib/algorithm.py``'s config half. ``Algorithm``
-itself (EnvRunner actors, ``train()``) stands on the actor runtime
-(``ray_tpu.core``), which the port has not copied, so ``build()`` raises;
-the learners and ``EnvRunner`` are driven directly until then.
+itself (EnvRunner actors, ``train()``) stands on the actor runtime; the
+port has a single-node runtime (``ray_tpu_torch.core``) but not yet the
+algorithm loops on it, so ``build()`` raises; the learners and
+``EnvRunner`` are driven directly until then.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ import copy
 from typing import Any, Callable, Dict, Optional
 
 NO_RUNTIME = (
-    "{} needs the actor runtime (ray_tpu.core: EnvRunner actors, "
-    "ray_tpu.get), which ray_tpu_torch has not ported; drive the learner "
-    "and EnvRunner directly"
+    "{} needs RLlib's algorithm loops on the actor runtime (EnvRunner "
+    "actors, get), which ray_tpu_torch has not ported yet; drive the "
+    "learner and EnvRunner directly"
 )
 
 

@@ -394,8 +394,8 @@ class TwinCriticLearner(Learner):
 
 class LearnerGroup:
     """Run a Learner locally (ref: learner_group.py:66). The remote mode,
-    a learner inside an actor, stands on the actor runtime, which the port
-    has not copied: ``remote=True`` raises."""
+    a learner inside an actor of the actor runtime, is not ported yet:
+    ``remote=True`` raises."""
 
     def __init__(self, learner_factory: Callable[[], Learner],
                  *, remote: bool = False,

@@ -5,7 +5,7 @@ keys, so one dashboard reads both: device memory in use, peak and limit
 and the allocator's fragmentation per device, step compiles and their
 seconds, and collective calls and bytes. Everything records into
 ``util/metrics.py``, so ``util/prometheus.render()`` exposes it. The node
-tag is "local" (the port has no runtime); a device is tagged
+tag is "local" (the port's metrics are process-local); a device is tagged
 ``gpu:<index>``, JAX's name for a GPU platform.
 
 Sampling is passive: :func:`sample` does nothing in a process that has

@@ -5,8 +5,11 @@ A plan is a list of specs (:func:`validate_spec`); :func:`apply_plan` arms
 it in THIS process and :func:`fire` is the hook a call site runs where a
 real fault would surface. Disarmed, :func:`fire` is one truth test.
 
-- Points: :data:`CHECKPOINT_IO` only (``train/checkpoint.py`` fires it at
-  the top of save and of restore, with ``op="save"`` or ``op="restore"``).
+- Points: :data:`CHECKPOINT_IO` (``train/checkpoint.py`` fires it at the
+  top of save and of restore, with ``op="save"`` or ``op="restore"``) and
+  :data:`TRAIN_WORKER` (``train/session.py``'s ``report`` fires it with
+  ``rank`` and ``run``: a rank killed mid-step, which the gang supervisor
+  answers with a whole-gang restart).
 - Modes: ``always``, ``once`` (the Nth eligible hit), ``every`` (every
   Nth hit), ``prob`` (seeded RNG); per-process counters, so a seeded run
   replays identically. ``max_fires`` caps the firings (0: no cap).
@@ -17,11 +20,14 @@ real fault would surface. Disarmed, :func:`fire` is one truth test.
   whose context matches every entry, e.g. ``{"op": "save"}``.
 
 The JAX package arms a plan across the cluster through its GCS and
-publishes a CHAOS event per firing; both wait for the port of the actor
-runtime, so a plan here is armed process by process (in a multi-process
-world, each rank arms its own) and firings are counted locally
-(:func:`fired_counts`). The ``partition`` action and ``node`` scoping
-belong to that runtime too.
+publishes a CHAOS event per firing. The port's runtime is one node with
+no such plane: a plan is armed process by process and firings are counted
+locally (:func:`fired_counts`). A train rank runs in a worker process, so
+``train/trainer.py`` hands the driver's armed ``train_worker`` specs to
+each rank it starts (:func:`armed_specs`), and the rank arms them in its
+own process before its loop; a spec scoped to one ``run`` fires in that
+attempt only, since a restarted gang gets a new run id. The ``partition``
+action and ``node`` scoping belong to a cluster plane too.
 """
 
 from __future__ import annotations
@@ -31,8 +37,15 @@ import threading
 from typing import Any, Dict, List, Tuple
 
 CHECKPOINT_IO = "checkpoint_io"
+TRAIN_WORKER = "train_worker"
 
 FAULT_POINTS: Dict[str, str] = {
+    TRAIN_WORKER: "train worker step boundary (session.report) "
+                  "(degradation: the rank dies mid-step, the gang "
+                  "supervisor aborts the whole gang and restarts it "
+                  "from the last committed checkpoint, bounded by "
+                  "FailureConfig.max_failures; scope to one rank via "
+                  "match={'rank': ...})",
     CHECKPOINT_IO: "checkpoint save/restore I/O "
                    "(degradation: the half-written .tmp- directory "
                    "never becomes a committed checkpoint; restore "
@@ -107,6 +120,8 @@ def validate_spec(spec: Dict[str, Any]) -> Dict[str, Any]:
 
 
 _lock = threading.Lock()
+# The validated specs of the armed plan, for handing on to train ranks.
+_specs: Tuple[Dict[str, Any], ...] = ()
 # () when disarmed: fire()'s whole cost is this truth test.
 _armed: Tuple[_ArmedSpec, ...] = ()
 
@@ -115,10 +130,18 @@ def apply_plan(specs: List[Dict[str, Any]]) -> None:
     """Install ``specs`` as this process's armed plan, replacing any
     previous one; every spec starts from zero, so re-applying a seeded
     plan replays identically. A spec that does not validate raises."""
-    global _armed
-    armed_specs = tuple(_ArmedSpec(validate_spec(s)) for s in specs or [])
+    global _armed, _specs
+    valid = tuple(validate_spec(s) for s in specs or [])
+    states = tuple(_ArmedSpec(s) for s in valid)
     with _lock:
-        _armed = armed_specs
+        _armed = states
+        _specs = valid
+
+
+def armed_specs(point: str) -> List[Dict[str, Any]]:
+    """The armed plan's specs for ``point``, as validated."""
+    with _lock:
+        return [dict(s) for s in _specs if s["point"] == point]
 
 
 def clear() -> None:

@@ -6,9 +6,9 @@ layout, and ``with_tags`` returns a bound recorder for hot paths.
 
 The registry is process-local. The JAX package flushes each process's
 registry to its runtime's KV store from a flusher thread, and
-``get_metrics_report()`` aggregates every process's blob. The port has no
-runtime (it waits for the actor runtime's port), so nothing is flushed,
-no thread is started, and ``get_metrics_report()`` reports this process's
+``get_metrics_report()`` aggregates every process's blob. The port's
+runtime has no such KV flush, so nothing is flushed, no thread is
+started, and ``get_metrics_report()`` reports this process's
 registry in the JAX report's shape: ``{name: {"type", "series", "help"}}``.
 """
 

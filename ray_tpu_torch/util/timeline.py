@@ -9,7 +9,7 @@ checkpoint outside a trace records nothing, as in the JAX package.
 
 The buffer is process-local, a ``deque`` with the JAX package's cap. The
 JAX package flushes each worker's buffer to its runtime's KV store and
-``timeline()`` merges every worker's; the port has no runtime, so
+``timeline()`` merges every worker's; the port's runtime does not, so
 ``timeline()`` returns this process's spans, with the JAX events' fields.
 """
 

@@ -6,8 +6,9 @@ libraries touched, extra tags), with ``torch_version`` and
 ``cuda_version`` in place of ``jax_version``. Without a runtime there is
 no ``num_nodes`` or ``total_resources``, and nothing writes the report
 out or records extra tags: in the JAX package the runtime's ``init`` does
-both, and the runtime is not ported. ``train``, ``serve`` and ``data``
-record their use when imported, as in the JAX package.
+both, and the port's runtime does neither. ``train``, ``serve`` and
+``data`` record their use when imported, as in the JAX package. Recording
+imports no torch, so a CPU worker that imports ``train`` stays light.
 """
 
 from __future__ import annotations
@@ -16,8 +17,6 @@ import platform
 import threading
 import time
 from typing import Any, Dict
-
-import torch
 
 _lock = threading.Lock()
 _libraries: set = set()
@@ -30,6 +29,8 @@ def record_library_usage(name: str) -> None:
 
 
 def build_report() -> Dict[str, Any]:
+    import torch
+
     from .._version import __version__
 
     report: Dict[str, Any] = {

@@ -236,8 +236,12 @@ def fresh_import(tmp_path_factory):
         "from ray_tpu_torch.util import device_metrics\n"
         "from ray_tpu_torch.ops import _build, flash_attention as fa\n"
         "from ray_tpu_torch.ops import paged_attention as pa\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ray_tpu')]\n"
+        "import ray_tpu_torch.core, ray_tpu_torch.core.worker_main\n"
+        "import ray_tpu_torch.train.trainer, ray_tpu_torch.train.torch\n"
+        "import ray_tpu_torch.util.events\n"
+        "FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ray_tpu', "
+        "'cloudpickle')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in FOREIGN]\n"
         "print('foreign', bad)\n"
         "print('sample', device_metrics.sample(), torch.cuda.is_initialized())\n"
         "q = torch.zeros(1, 4, 2, 8)\n"
@@ -247,7 +251,24 @@ def fresh_import(tmp_path_factory):
         "    _build.library()\n"
         "except RuntimeError as e:\n"
         "    print('build', 'nvcc' in str(e))\n"
+        "sys.path.insert(0, PROBE_DIR)\n"
+        "import guard_probe\n"
+        "ray_tpu_torch.init(num_cpus=1, num_gpus=0)\n"
+        "roots = ray_tpu_torch.get(\n"
+        "    ray_tpu_torch.remote(guard_probe.roots).remote())\n"
+        "ray_tpu_torch.shutdown()\n"
+        "print('worker', sorted(set(roots) & set(FOREIGN)),\n"
+        "      'ray_tpu_torch.train' in roots)\n"
     )
+    probe = tmp_path_factory.mktemp("guard_probe")
+    (probe / "guard_probe.py").write_text(
+        "import sys\n\n\n"
+        "def roots():\n"
+        "    import ray_tpu_torch.core\n"
+        "    import ray_tpu_torch.train.trainer  # what a train rank loads\n"
+        "    return sorted({m.split('.')[0] for m in sys.modules}\n"
+        "                  | {'ray_tpu_torch.train'} & set(sys.modules))\n")
+    code = f"PROBE_DIR = {str(probe)!r}\n" + code
     bare = str(tmp_path_factory.mktemp("no_cuda"))
     env = dict(os.environ, PATH=bare, CUDA_HOME=bare)
     env.pop("PYTHONPATH", None)
@@ -258,7 +279,11 @@ def fresh_import(tmp_path_factory):
 
 
 def test_import_leaves_jax_and_ray_tpu_out(fresh_import):
+    """Neither the driver, after importing every port module, nor a worker
+    process of the port's runtime, after a task that loads the runtime
+    and the trainer, holds JAX, the JAX package or cloudpickle."""
     assert "foreign []" in fresh_import
+    assert "worker [] True" in fresh_import
 
 
 def test_device_sampling_does_not_start_cuda(fresh_import):
