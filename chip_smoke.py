@@ -152,6 +152,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
      one restart, the worker's flash launches (reported by the loop, since
      they happen in another process) above 0; no worker outlives
      shutdown();
+  15. Ray Data on the port's runtime: (a) range(4096, 16 blocks) ->
+     map_batches (a sort key and 256 float32 features from each id) ->
+     filter -> random_shuffle(seed=0) -> sort -> union with a second
+     dataset -> streaming_split(2) read by two threads, in CPU workers of
+     init(num_cpus=2): each stage's rows equal the same plan run locally
+     (in order where the order is fixed, else as a multiset), with blocks/s
+     and MB/s of the remote run beside its local time; (b) llama3_8b at
+     full width and depth from seed 0, saved with Checkpoint.from_pytree,
+     scores 64 seeded rows of 512 tokens through BatchPredictor(ckpt,
+     TorchPredictor, apply_fn=predict_score) in one GPU actor (batch 8):
+     each row's mean log-probability of its next tokens and its argmax next
+     token equal to the driver's own forward (argmax equal, log-probability
+     within 1e-3), in row order, with 256 flash launches and no paged
+     launch in the actor, the actor's start, the restore's GB/s, the first
+     batch, steady rows/s and tokens/s and a profiled batch's device-busy
+     share; (c) phase 14b's 2-layer 8B trained 4 steps by TorchTrainer(
+     use_gpu=True, datasets={"train": ds}), the rank reading its rows with
+     get_dataset_shard("train").iter_torch_batches(batch_size=1): losses
+     identical to phase 14b's straight run in the driver, the worker's
+     launches twice phase 14b's (4 steps against 2), its steady step
+     against the driver's and the host µs in next();
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -3756,6 +3777,7 @@ def phase_trainer(card: str):
         params, opt, loss = step(params, opt, t)
         straight.append(loss.item())
         driver_ms.append((time.perf_counter() - t0) * 1e3)
+    TRAINER_STRAIGHT.update(losses=list(straight), ms=list(driver_ms))
     state = {"params": params, "opt_state": opt}
     nbytes = tree_bytes(state)
     ref = [t.cpu() for t in tree_tensors(state)]
@@ -3839,6 +3861,391 @@ def phase_trainer(card: str):
     return launches
 
 
+# ------------------------------------------------------ the data plane (15)
+
+DATA_ROWS, DATA_BLOCKS, DATA_WIDTH = 4096, 16, 256
+PREDICT = dict(rows=64, S=512, batch=8, seed=15)
+# The scorer call profiled in the actor: the last, since the profiler's
+# first session in a process takes seconds to start.
+PREDICT_PROFILED_CALL = PREDICT["rows"] // PREDICT["batch"]
+_predict_calls = []  # the scorer's calls in this process
+TRAINER_STRAIGHT = {}  # phase 14b's straight run: losses, step ms
+
+
+def data_features(batch):
+    """Phase 15a's map_batches: a unique sort key and DATA_WIDTH float32
+    features made from each id."""
+    ids = batch["id"]
+    freq = np.arange(1, DATA_WIDTH + 1, dtype=np.float64) * 1e-3
+    return {"id": ids, "key": (ids * 2654435761) % (1 << 32),
+            "x": np.sin(ids[:, None] * freq).astype(np.float32)}
+
+
+def data_keep(row):
+    return row["id"] % 3 != 0
+
+
+DATA_ORDERED = {"map_batches": True, "filter": True, "random_shuffle": False,
+                "sort": True, "union": True}
+
+
+def data_run(rd):
+    """Phase 15a's plan built and run stage by stage, each stage's wall
+    the plan from its source (a shuffle runs when it is built); then the
+    union's streaming_split(2) read by two threads. Returns ({stage:
+    (columns, s, blocks)}, the split's columns, its s, blocks a shard)."""
+    import chip_smoke as cs  # the functions travel as chip_smoke.<name>
+
+    out = {}
+
+    def run(name, build):
+        t0 = time.perf_counter()
+        ds = build()
+        blocks = list(ds.iter_batches(batch_size=None))
+        s = time.perf_counter() - t0
+        cols = {k: np.concatenate([b[k] for b in blocks]) for k in blocks[0]}
+        out[name] = (cols, s, len(blocks))
+        return ds
+
+    mapped = run("map_batches", lambda: rd.range(
+        DATA_ROWS, override_num_blocks=DATA_BLOCKS).map_batches(
+            cs.data_features))
+    kept = run("filter", lambda: mapped.filter(cs.data_keep))
+    shuffled = run("random_shuffle", lambda: kept.random_shuffle(seed=0))
+    ordered = run("sort", lambda: shuffled.sort("key"))
+    united = run("union", lambda: ordered.union(rd.range(
+        512, override_num_blocks=4).map_batches(cs.data_features)))
+    t0 = time.perf_counter()
+    shards = united.streaming_split(2)
+    got = [[], []]
+
+    def consume(i):
+        got[i] = list(shards[i].iter_batches(batch_size=None))
+
+    threads = [threading.Thread(target=consume, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads), "a split shard hung"
+    split_s = time.perf_counter() - t0
+    blocks = got[0] + got[1]
+    return out, {k: np.concatenate([b[k] for b in blocks])
+                 for k in blocks[0]}, split_s, [len(g) for g in got]
+
+
+def by_id(cols):
+    """The columns' rows sorted by (id, key): the order-free view."""
+    idx = np.lexsort((cols["key"], cols["id"]))
+    return {k: v[idx] for k, v in cols.items()}
+
+
+def same_rows(a, b, ordered: bool) -> bool:
+    if not ordered:
+        a, b = by_id(a), by_id(b)
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+
+
+def phase_data(card: str):
+    """Phase 15a: the Data plane in CPU workers of the port's runtime
+    against the same plan run locally, stage by stage."""
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+
+    local, local_split, local_split_s, _ = data_run(rd)
+    rt.init(num_cpus=2)
+    try:
+        t0 = time.perf_counter()  # the workers' start and imports
+        rd.range(8, override_num_blocks=2).map_batches(
+            cs.data_features).count()
+        warm_s = time.perf_counter() - t0
+        remote, remote_split, split_s, per_shard = data_run(rd)
+    finally:
+        rt.shutdown()
+    log(f"[data] init(num_cpus=2): the workers' start and a first 2-block "
+        f"plan {warm_s:.2f} s; range({DATA_ROWS}, {DATA_BLOCKS} blocks) -> "
+        f"map_batches (id, key, {DATA_WIDTH} float32 features) -> filter "
+        f"-> random_shuffle(seed=0) -> sort(key) -> union(range(512)) -> "
+        f"streaming_split(2), on {card}")
+    bad = []
+    for name, ordered in DATA_ORDERED.items():
+        (rc, rs, rb), (lc, ls, _) = remote[name], local[name]
+        nbytes = sum(v.nbytes for v in rc.values())
+        ok = same_rows(rc, lc, ordered)
+        if not ok:
+            bad.append(name)
+        log(f"[data] {name} (the plan to here): {len(rc['id'])} rows, "
+            f"{rb} blocks, "
+            f"{nbytes / 1e6:.3f} MB; remote {rs:.3f} s ({rb / rs:.1f} "
+            f"blocks/s, {nbytes / rs / 1e6:.2f} MB/s) against local "
+            f"{ls:.3f} s; rows {'equal' if ok else 'DIFFER'} "
+            f"({'in order' if ordered else 'as a multiset'})")
+    split_ok = same_rows(remote_split, local_split, False)
+    log(f"[data] streaming_split(2) over the union through the coordinator "
+        f"actor, two threads: {per_shard} blocks a shard, "
+        f"{len(remote_split['id'])} rows in {split_s:.3f} s (the "
+        f"coordinator's worker start and imports included) against local "
+        f"{local_split_s:.3f} s; rows {'equal' if split_ok else 'DIFFER'} "
+        f"as a multiset; on {card}")
+    assert not bad and split_ok and all(per_shard), (bad, per_shard)
+
+
+def score_rows(params, tokens, cfg):
+    """Each row's mean log-probability of its own next tokens and its last
+    position's argmax next token (no logits leave: a batch's are 1 GB)."""
+    from ray_tpu_torch.models.llama import forward
+
+    with torch.inference_mode():
+        logits, _ = forward(params, tokens, cfg)
+        logp = torch.log_softmax(logits[:, :-1], -1)
+        own = logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+        return {"logprob": own.mean(-1), "next_token": logits[:, -1].argmax(-1)}
+
+
+def predict_score(params, tokens):
+    """Phase 15b's apply_fn, run by TorchPredictor in the GPU actor: the
+    scores, then per row this process's flash and paged launch counts so
+    far, the call's wall clock (time.time()), the device-busy ms of the
+    profiled call (NaN on the others) and the restore's span."""
+    from ray_tpu_torch.models import LlamaConfig
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.util import timeline
+
+    cfg = LlamaConfig.llama3_8b()
+    _predict_calls.append(len(_predict_calls) + 1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    busy_ms = float("nan")
+    if _predict_calls[-1] == PREDICT_PROFILED_CALL:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = score_rows(params, tokens, cfg)
+            torch.cuda.synchronize()
+        busy_ms = sum(r[1] for r in _device_kernels(prof, 1))
+    else:
+        out = score_rows(params, tokens, cfg)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    span = [e for e in timeline.timeline()
+            if e["name"].startswith("ckpt_restore:")]
+    B = tokens.shape[0]
+
+    def col(value, dtype=torch.float64):
+        return torch.full((B,), value, dtype=dtype)
+
+    out.update(flash_fwd=col(fa.launches, torch.int64),
+               paged_decode=col(pa.launches, torch.int64),
+               t_start=col(t0), t_end=col(t1), busy_ms=col(busy_ms),
+               restore_ts=col(span[0]["ts"] / 1e6 if span else np.nan),
+               restore_s=col(span[0]["dur"] / 1e6 if span else np.nan))
+    return out
+
+
+def phase_batch_predict(card: str):
+    """Phase 15b: llama3_8b at full width and depth scores a Dataset of
+    token rows through BatchPredictor in one GPU actor, against the
+    driver's own forward on the same rows."""
+    import shutil
+
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.models import LlamaConfig, init_params, num_params
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train import BatchPredictor, Checkpoint, TorchPredictor
+
+    c = PREDICT
+    cfg = LlamaConfig.llama3_8b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    nbytes, n_params = tree_bytes(params), num_params(params)
+    tokens = np.random.RandomState(c["seed"]).randint(
+        0, cfg.vocab_size, (c["rows"], c["S"])).astype(np.int32)
+    # The kernel at this path's shape against its plain version (these
+    # launches are the driver's, not the actor's).
+    gen = torch.Generator(device="cuda").manual_seed(c["seed"])
+    q, k, v = (torch.randn((c["batch"], c["S"], h, cfg.dh), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    o, _ = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, _ = fa.flash_attention_reference(q, k, v, causal=True)
+    err = (o.float() - ro.float()).abs().max().item()
+    del q, k, v, o, ro
+    assert err <= 2e-2, err
+    want = []
+    t0 = time.perf_counter()
+    for i in range(0, c["rows"], c["batch"]):
+        x = torch.from_numpy(tokens[i:i + c["batch"]]).cuda()
+        want.append({k: v.cpu().numpy()
+                     for k, v in score_rows(params, x, cfg).items()})
+    torch.cuda.synchronize()
+    driver_s = time.perf_counter() - t0
+    path = ckpt_dir("predict", nbytes, card)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck = Checkpoint.from_pytree(params, path)
+        save_s = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        rt.init(num_cpus=2)
+        try:
+            ds = rd.from_numpy(tokens, column="tokens",
+                               override_num_blocks=c["rows"] // c["batch"])
+            scored = BatchPredictor(
+                ck, TorchPredictor, apply_fn=cs.predict_score,
+                input_column="tokens").predict(ds, concurrency=1,
+                                               batch_size=c["batch"])
+            t_submit = time.time()
+            arrivals, blocks = [], []
+            for b in scored.iter_batches(batch_size=None):
+                arrivals.append(time.time())
+                blocks.append(b)
+        finally:
+            rt.shutdown()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    got = {k: np.concatenate([b[k] for b in blocks]) for k in blocks[0]}
+    ref = {k: np.concatenate([w[k] for w in want]) for k in want[0]}
+    lp_err = float(np.abs(got["logprob"] - ref["logprob"]).max())
+    bitwise = np.array_equal(got["logprob"], ref["logprob"])
+    argmax_eq = np.array_equal(got["next_token"], ref["next_token"])
+    launches = {"flash_fwd": int(got["flash_fwd"][-1]),
+                "paged_decode": int(got["paged_decode"][-1])}
+    calls = [(blocks[i]["t_start"][0], blocks[i]["t_end"][0])
+             for i in range(len(blocks))]
+    batch_ms = [float(e - s) * 1e3 for s, e in calls]
+    gap_ms = [float(calls[i + 1][0] - calls[i][1]) * 1e3
+              for i in range(len(calls) - 1)]
+    restore_s = float(got["restore_s"][0])
+    start_s = float(got["restore_ts"][0]) - t_submit
+    # Steady: the blocks after the first, before the profiled last one.
+    steady_s = arrivals[-2] - arrivals[0]
+    steady_rows = c["rows"] - 2 * c["batch"]
+    steady_ms = float(np.median(batch_ms[1:-1]))
+    busy_ms = float(np.nanmax(got["busy_ms"]))
+    log(f"[predict] llama3_8b ({n_params / 1e9:.3f} B "
+        f"params, {cfg.num_layers} layers, bf16): BatchPredictor(ckpt, "
+        f"TorchPredictor, apply_fn=chip_smoke.predict_score), "
+        f"{c['rows']} seeded rows of {c['S']} tokens in "
+        f"{len(blocks)} blocks, batch_size={c['batch']}, concurrency=1, "
+        f"one GPU actor; save {nbytes / 1e9:.3f} GB in {save_s:.2f} s "
+        f"({nbytes / save_s / 1e9:.3f} GB/s); on {card}")
+    log(f"[predict] actor start (submit to the restore's start: worker "
+        f"spawn, imports) {start_s:.2f} s; restore {restore_s:.2f} s "
+        f"({nbytes / restore_s / 1e9:.3f} GB/s); first batch "
+        f"{batch_ms[0]:.1f} ms in the actor, first rows at the driver "
+        f"{arrivals[0] - t_submit:.2f} s after submit; steady {steady_rows} "
+        f"rows in {steady_s:.3f} s: {steady_rows / steady_s:.2f} rows/s, "
+        f"{steady_rows * c['S'] / steady_s:.0f} tokens/s (driver's own "
+        f"forward, all 8 batches: {c['rows'] / driver_s:.2f} rows/s); "
+        f"batch ms in the actor {[round(x, 1) for x in batch_ms]} (the "
+        f"last profiled), the actor idle between calls (the pool's "
+        f"round trip) {[round(x, 1) for x in gap_ms]} ms; the profiled "
+        f"batch's device-busy {busy_ms:.1f} "
+        f"ms: {busy_ms / steady_ms:.3f} of a steady batch's "
+        f"{steady_ms:.1f} ms wall")
+    log(f"[predict] against the driver's forward on the same rows: "
+        f"argmax {'equal' if argmax_eq else 'DIFFERS'}, log-probabilities "
+        f"max|d| {lp_err:.3e} (tol 1e-3, {'bitwise' if bitwise else 'not bitwise'}); "
+        f"in row order; flash kernel B={c['batch']} "
+        f"S={c['S']} against plain max|dO| {err:.3e} (tol 2e-2); launches in "
+        f"the actor {launches}")
+    assert argmax_eq and lp_err <= 1e-3, (argmax_eq, lp_err)
+    want_fwd = cfg.num_layers * c["rows"] // c["batch"]
+    assert launches == {"flash_fwd": want_fwd, "paged_decode": 0}, launches
+    return launches
+
+
+def trainer_data_loop():
+    """Phase 15c's train loop: phase 14b's model and steps, the tokens read
+    from the rank's Dataset shard onto its card."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import CompiledTrainStep
+
+    assert train.get_device().type == "cuda"
+    train_launches(reset=True)
+    cfg = trainer_config()
+    step = CompiledTrainStep(cfg, learning_rate=1e-3)
+    params, opt = step.init(torch.Generator(device="cuda").manual_seed(0))
+    batches = iter(train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=1))
+    for i in range(TRAINER_STEPS):
+        t0 = time.perf_counter()
+        tokens = next(batches)["tokens"]
+        next_us = (time.perf_counter() - t0) * 1e6
+        assert tokens.is_cuda and tokens.dtype == torch.int32 and \
+            tuple(tokens.shape) == (1, 2049), (tokens.device, tokens.shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens)
+        loss = loss.item()
+        train.report({"step": i, "loss": loss, "next_us": next_us,
+                      "step_ms": (time.perf_counter() - t0) * 1e3,
+                      **train_launches()})
+
+
+def phase_trainer_data(card: str, trainer_launches):
+    """Phase 15c: phase 14b's 2-layer 8B trained by TorchTrainer fed by a
+    Dataset: the rank reads its rows through get_dataset_shard("train")
+    .iter_torch_batches, against phase 14b's straight run of the same
+    rows in the driver."""
+    import shutil
+
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cfg = trainer_config()
+    rows = np.concatenate([t.cpu().numpy() for t in trainer_tokens(cfg, "cpu")])
+    path = ckpt_dir("trainer_data", 0, card)
+    rt.init(num_cpus=2)
+    try:
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            cs.trainer_data_loop,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=path),
+            datasets={"train": rd.from_numpy(rows, column="tokens",
+                                             override_num_blocks=4)},
+        ).fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+        shutil.rmtree(path, ignore_errors=True)
+    assert result.error is None, result.error
+    hist = result.metrics_history
+    losses = [m["loss"] for m in hist]
+    straight = TRAINER_STRAIGHT["losses"]
+    launches = {k: hist[-1][k] for k in TRAIN_COUNTERS}
+    # Phase 14b's worker counted two steps after its restart.
+    want = {k: v * TRAINER_STEPS // 2 for k, v in trainer_launches.items()}
+    worker_ms = [m["step_ms"] for m in hist]
+    next_us = [m["next_us"] for m in hist]
+    log(f"[trainer-data] TorchTrainer(use_gpu=True, datasets={{'train': "
+        f"from_numpy of phase 14b's 4 rows}}), the rank reading "
+        f"get_dataset_shard('train').iter_torch_batches(batch_size=1): fit "
+        f"{fit_s:.2f} s; losses {losses} against the driver's {straight}: "
+        f"{'identical' if losses == straight else 'DIFFER'}; worker launches "
+        f"{launches} (want {want}); on {card}")
+    log(f"[trainer-data] median steady step ms in the worker "
+        f"{np.median(worker_ms[1:]):.3f} against the driver's "
+        f"{np.median(TRAINER_STRAIGHT['ms'][1:]):.3f} (first steps, the "
+        f"warm-up, left out: worker {worker_ms[0]:.1f}, driver "
+        f"{TRAINER_STRAIGHT['ms'][0]:.1f}); host µs in next(): first "
+        f"{next_us[0]:.0f} (the plan's first tasks), then "
+        f"{[round(x) for x in next_us[1:]]}")
+    assert losses == straight, (losses, straight)
+    assert launches == want, (launches, want)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3874,6 +4281,10 @@ def main() -> int:
     torch.cuda.empty_cache()  # phase 14's worker shares the card
     phase_runtime(card)
     train["trainer"] = phase_trainer(card)
+    phase_data(card)
+    predict = {"batch_predict": phase_batch_predict(card)}
+    torch.cuda.empty_cache()
+    train["trainer_data"] = phase_trainer_data(card, train["trainer"])
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"
@@ -3886,7 +4297,7 @@ def main() -> int:
     kernels = [
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
              replaces=fa_src + "40",
-             **launched("flash_fwd", {**serve, **train, **ring}),
+             **launched("flash_fwd", {**serve, **train, **ring, **predict}),
              shape="B=1 S=2048 " + attn, **kern["flash_fwd_S2048"]),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=fa_src + "144",

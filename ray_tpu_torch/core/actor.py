@@ -2,10 +2,13 @@
 ``ray_tpu/core/actor.py``).
 
 Each actor lives in a worker process of its own and runs its method calls
-one at a time in the order they were submitted. Options: ``num_cpus``
-(default 0, as in the JAX package), ``num_gpus``, ``resources``,
-``scheduling_strategy``, ``max_restarts`` (default 0) and ``name``. Every
-actor answers ``__rtpu_ping__`` with ``"ok"`` once its constructor has run.
+one at a time in the order they were submitted, or, with
+``max_concurrency`` above 1, on that many threads of its worker at once
+(a call that blocks then holds one thread, not the actor). Options:
+``num_cpus`` (default 0, as in the JAX package), ``num_gpus``,
+``resources``, ``scheduling_strategy``, ``max_restarts`` (default 0),
+``max_concurrency`` (default 1) and ``name``. Every actor answers
+``__rtpu_ping__`` with ``"ok"`` once its constructor has run.
 """
 
 from __future__ import annotations
@@ -89,6 +92,7 @@ class ActorClass:
             resources=_build_resources(self._options, default_num_cpus=0),
             strategy=self._options.get("scheduling_strategy"),
             max_restarts=self._options.get("max_restarts", 0),
+            max_concurrency=int(self._options.get("max_concurrency", 1)),
         ), args, kwargs)
         return ActorHandle(actor_id, self._cls.__name__)
 

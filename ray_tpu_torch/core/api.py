@@ -47,11 +47,15 @@ def init(
     num_cpus: Optional[int] = None,
     num_gpus: Optional[int] = None,
     resources: Optional[Dict[str, float]] = None,
+    object_store_memory: Optional[int] = None,
     system_config: Optional[Dict[str, Any]] = None,
     ignore_reinit_error: bool = False,
 ) -> DriverRuntime:
     """Start the runtime in this process: the node's scheduler, object
-    table and KV here, the workers as processes of their own."""
+    table and KV here, the workers as processes of their own.
+    ``object_store_memory`` is the capacity, in bytes, that the objects
+    the driver holds are counted against (``StoreUsagePolicy`` reads it);
+    None keeps the config's ``object_store_memory`` (default 0: none)."""
     existing = runtime_context.current_runtime_or_none()
     if existing is not None:
         if ignore_reinit_error:
@@ -59,7 +63,10 @@ def init(
         raise RuntimeError("ray_tpu.init() called twice; use shutdown() "
                            "first.")
     reset_config()
-    get_config().apply_overrides(system_config)
+    config = get_config()
+    config.apply_overrides(system_config)
+    if object_store_memory is not None:
+        config.object_store_memory = int(object_store_memory)
     if num_gpus is None:
         import torch
 

@@ -31,6 +31,9 @@ class Config:
     # CPU-typed workers started with the runtime (ref: worker_pool
     # prestart).
     num_prestart_workers: int = 2
+    # Bytes the objects held by the driver are counted against (0 = no
+    # capacity: the data plane's store policy never holds back).
+    object_store_memory: int = 0
     # How long a task or actor whose resources fit no node may stay
     # queued before it fails (0 = fail fast).
     infeasible_grace_s: float = 0.0

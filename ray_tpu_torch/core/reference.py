@@ -14,8 +14,10 @@ runtime's life.
 
 from __future__ import annotations
 
+import io
 import pickle
 import threading
+import types
 from typing import List, Tuple
 
 from . import runtime_context
@@ -23,16 +25,43 @@ from . import runtime_context
 _collect = threading.local()
 
 
+def refuse_unimportable(fn) -> None:
+    """Raise ``TypeError`` naming a function or class that a worker could
+    not import (``__main__``, a local or lambda)."""
+    module = getattr(fn, "__module__", None)
+    qualname = getattr(fn, "__qualname__", "")
+    if module == "__main__" or "<" in qualname:
+        raise TypeError(
+            f"{module}.{qualname} cannot run in a worker process: remote "
+            "functions, actor classes and train loops travel by reference "
+            "(pickle), so define them at module level in a module the "
+            "workers can import (not in __main__ or inside a function)"
+        )
+
+
+class _ByReference(pickle.Pickler):
+    """Pickles functions and classes by reference, as pickle does, and
+    refuses by name the first one a worker could not import."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, (types.FunctionType, type)):
+            refuse_unimportable(obj)
+        return NotImplemented
+
+
 def dumps_with_refs(value) -> Tuple[bytes, List[str]]:
     """Pickle ``value``; returns the blob and the ids of the refs in it,
-    one for each ref that loading the blob makes."""
+    one for each ref that loading the blob makes. A function or class
+    inside ``value`` that a worker could not import raises
+    :func:`refuse_unimportable`'s ``TypeError``."""
     outer = getattr(_collect, "ids", None)
     _collect.ids = ids = []
+    buf = io.BytesIO()
     try:
-        blob = pickle.dumps(value, protocol=pickle.HIGHEST_PROTOCOL)
+        _ByReference(buf, pickle.HIGHEST_PROTOCOL).dump(value)
     finally:
         _collect.ids = outer
-    return blob, ids
+    return buf.getvalue(), ids
 
 
 class ObjectRef:

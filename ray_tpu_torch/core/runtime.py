@@ -20,7 +20,10 @@ auth key and speak pickled tuples (``multiprocessing.connection``).
   classes travel by reference, so a remote function, an actor class or a
   train loop must be importable at module level in the worker. The driver
   passes its ``sys.path`` to the workers through ``PYTHONPATH``.
-- **Objects** live in the driver as pickled bytes. A task's top-level
+- **Objects** live in the driver as pickled bytes, counted against
+  ``init(object_store_memory=)`` (:meth:`DriverRuntime.store_usage`, which
+  the data plane's backpressure reads; nothing is refused or spilled at
+  the capacity). A task's top-level
   ``ObjectRef`` arguments are resolved by the driver before it dispatches
   the task; refs nested deeper travel as refs and the worker ``get``\\ s
   them. Workers forward ``get``, ``put``, ``wait``, the KV and nested
@@ -61,7 +64,7 @@ from .exceptions import (
     TaskError,
     WorkerCrashedError,
 )
-from .reference import ObjectRef, dumps_with_refs
+from .reference import ObjectRef, dumps_with_refs, refuse_unimportable
 from .resources import GPU, NodeResources, ResourceSet
 
 WORKER_MODULE = "ray_tpu_torch.core.worker_main"
@@ -84,15 +87,7 @@ def dumps(value) -> bytes:
 def dump_callable(fn) -> bytes:
     """Pickle a function or class by reference, refusing what a worker
     could not import (``__main__``, a local or lambda)."""
-    module = getattr(fn, "__module__", None)
-    qualname = getattr(fn, "__qualname__", "")
-    if module == "__main__" or "<" in qualname:
-        raise TypeError(
-            f"{module}.{qualname} cannot run in a worker process: remote "
-            "functions, actor classes and train loops travel by reference "
-            "(pickle), so define them at module level in a module the "
-            "workers can import (not in __main__ or inside a function)"
-        )
+    refuse_unimportable(fn)
     return dumps(fn)
 
 
@@ -160,6 +155,9 @@ class _Object:
         self.pinned = False  # a ref to it was pickled outside the runtime
         self.nested: List[str] = []  # the refs inside ``blob``, held
 
+    def nbytes(self) -> int:
+        return len(self.blob or self.error or b"")
+
 
 class _Task:
     """A normal task, an actor creation or an actor call."""
@@ -182,6 +180,7 @@ class _Task:
         self.keep = keep  # refs to deps and nested, alive until done
         self.returns = returns
         self.actor: Optional["_Actor"] = None
+        self.max_concurrency = int(spec.get("max_concurrency", 1))
         self.gpus: List[int] = []  # the node's card indices it holds
         self.bundle: Optional["_Bundle"] = None
         self.infeasible_since: Optional[float] = None
@@ -268,6 +267,8 @@ class DriverRuntime:
         self._gpu_entries = list(gpu_entries)
         self._gpu_free = list(range(int(self._node.total.get(GPU))))
         self._objects: Dict[str, _Object] = {}
+        self._store_used = 0  # bytes of the ready objects held
+        self._store_capacity = int(self.config.object_store_memory)
         self._refs: Dict[str, int] = {}
         self._kv: Dict[str, bytes] = {}
         self._workers: Dict[str, _Worker] = {}
@@ -314,6 +315,7 @@ class DriverRuntime:
 
     def _free(self, oid: str) -> None:
         obj = self._objects.pop(oid)
+        self._store_used -= obj.nbytes()
         for n in obj.nested:
             self.release_ref(n)
 
@@ -365,6 +367,7 @@ class DriverRuntime:
         if not obj.pinned and self._refs.get(oid, 0) <= 0:
             del self._objects[oid]
         else:
+            self._store_used += obj.nbytes()
             obj.nested = list(nested)
             for n in obj.nested:
                 self.add_ref(n)
@@ -458,6 +461,12 @@ class DriverRuntime:
             ref = ObjectRef(oid)
             self._store(oid, blob=blob, nested=nested)
             return ref
+
+    def store_usage(self) -> Tuple[int, int]:
+        """(bytes of the objects the driver holds, ``object_store_memory``;
+        0 when ``init`` set no capacity)."""
+        with self._lock:
+            return self._store_used, self._store_capacity
 
     # ---------------------------------------------------------------- KV
 
@@ -809,7 +818,7 @@ class DriverRuntime:
             task = w.actor.create
             w.state = "actor"
             msg = ("create", task.tid, task.name, task.fn, task.args_blob,
-                   self._hand_args(w, task))
+                   self._hand_args(w, task), task.max_concurrency)
         else:
             task = w.task
             w.state = "busy"
@@ -993,11 +1002,19 @@ class DriverRuntime:
         task.keep = []
         if task.kind == "call":
             task.actor.inflight.pop(tid, None)
-            return
-        self._release(task)
-        w.task = None
-        if w.state == "busy":
-            w.state = "idle"
+        else:
+            self._release(task)
+            w.task = None
+            if w.state == "busy":
+                w.state = "idle"
+        self._wake()
+
+    def _wake(self) -> None:
+        """Results landed (lock held): send the actors' queued calls whose
+        arguments are now ready, and start the queued tasks that can."""
+        for actor in list(self._actors.values()):
+            if actor.state == "alive" and actor.queue:
+                self._pump(actor)
         self._schedule()
 
     def _log_tail(self, w: _Worker, lines: int = 20) -> str:
@@ -1057,7 +1074,7 @@ class DriverRuntime:
                 self._queue.insert(0, task)
             else:
                 self._fail(task, WorkerCrashedError(task.name, detail))
-        self._schedule()
+        self._wake()
         self._cv.notify_all()
 
     def _actor_dead(self, actor: _Actor, cause: str) -> None:

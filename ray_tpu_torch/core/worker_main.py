@@ -4,7 +4,9 @@
 Started by the driver as ``python -m ray_tpu_torch.core.worker_main`` with
 its address, auth key, worker id and type in the environment. It connects
 back, then runs what the driver sends in order, one at a time, on its main
-thread: tasks, or the constructor and the method calls of its one actor. A
+thread: tasks, or the constructor and the method calls of its one actor
+(an actor created with ``max_concurrency`` n above 1 runs its calls on a
+pool of n threads instead, so up to n of them run at once). A
 reader thread takes the driver's messages and the replies to this
 process's requests, so a task's background threads (a train rank's
 heartbeat) can use the KV while the task runs. :class:`WorkerRuntime`
@@ -23,6 +25,7 @@ import queue
 import sys
 import threading
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from multiprocessing.connection import Client
 from typing import Any, Dict, List, Optional
 
@@ -41,7 +44,7 @@ class WorkerRuntime:
         self.worker_id = worker_id
         self.worker_type = worker_type
         self.node_id = node_id
-        self.current_task_id: Optional[str] = None
+        self._task = threading.local()  # the running call, per thread
         self.current_actor_id: Optional[str] = None
         self._send_lock = threading.Lock()
         self._ids = itertools.count()
@@ -55,6 +58,14 @@ class WorkerRuntime:
         # and the flusher thread sends.
         self._outbox: deque = deque()
         self._outbox_ready = threading.Event()
+
+    @property
+    def current_task_id(self) -> Optional[str]:
+        return getattr(self._task, "tid", None)
+
+    @current_task_id.setter
+    def current_task_id(self, tid: Optional[str]) -> None:
+        self._task.tid = tid
 
     # --------------------------------------------------------- transport
 
@@ -166,6 +177,9 @@ class WorkerRuntime:
     def kv_keys(self, prefix: str = "") -> List[str]:
         return self.request("kv_keys", prefix)
 
+    def store_usage(self):
+        return self.request("store_usage")
+
     def kill_actor(self, aid: str) -> None:
         self.request("kill_actor", aid)
 
@@ -196,11 +210,19 @@ class WorkerRuntime:
 
 
 class _Executor:
-    """Runs the driver's tasks, or its one actor, on the main thread."""
+    """Runs the driver's tasks, or its one actor, on the main thread; a
+    concurrent actor's calls on ``pool``."""
 
     def __init__(self, rt: WorkerRuntime):
         self.rt = rt
         self.instance = None
+        self.pool: Optional[ThreadPoolExecutor] = None
+
+    def take(self, msg) -> None:
+        if msg[0] == "call" and self.pool is not None:
+            self.pool.submit(self.run, msg)
+        else:
+            self.run(msg)
 
     def run(self, msg) -> None:
         kind, tid, name = msg[0], msg[1], msg[2]
@@ -220,6 +242,9 @@ class _Executor:
                 if kind == "create":
                     rt.current_actor_id = tid
                     self.instance = fn(*args, **kwargs)
+                    if msg[6] > 1:
+                        self.pool = ThreadPoolExecutor(
+                            msg[6], thread_name_prefix="ray_tpu_torch-call")
                     rt.send(("done", tid, True, []))
                     return
                 num_returns = msg[6]
@@ -280,7 +305,7 @@ def main() -> None:
                      name="ray_tpu_torch-refs").start()
     executor = _Executor(rt)
     while True:
-        executor.run(work.get())
+        executor.take(work.get())
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """ray_tpu_torch.train: the fused training step for the Llama family and
 its AdamW (the counterparts of ``ray_tpu/train/compiled_step.py`` and
 ``optax.adamw``), crash-safe checkpoints, sharded or whole
-(``checkpoint``), the predictor that scores a checkpoint (``predictor``),
+(``checkpoint``), the predictor that scores a checkpoint and the batch
+predictor that scores a Dataset with it in an actor pool (``predictor``),
 and the trainer: ``TorchTrainer`` runs a train loop in a gang of worker
 processes on the port's runtime, restarting it from its last committed
 checkpoint, with the session functions (``report``, ``get_checkpoint``,
@@ -43,6 +44,7 @@ _LAZY = {
     "CompiledTrainStep": "compiled_step",
     "AdamState": "optim",
     "AdamW": "optim",
+    "BatchPredictor": "predictor",
     "Predictor": "predictor",
     "TorchPredictor": "predictor",
     "get_device": "torch",

@@ -3,14 +3,19 @@
 A Predictor restores a model from a Checkpoint and scores numpy batches.
 :class:`TorchPredictor` is the counterpart of the JAX package's
 ``JaxPredictor``: a tree restored onto the card (``device="cpu"`` when
-asked) and an apply function. The JAX package's ``GBDTPredictor`` (on
-``train/gbdt.py``) and ``BatchPredictor`` (on ``Dataset.map_batches`` and
-the actor pool) wait for those modules' port.
+asked) and an apply function. :class:`BatchPredictor` fans a predictor out
+over a Dataset through the actor-pool map operator, so the model restores
+once per pool member, not per block. Unlike the JAX package's, each member
+asks for a card (``{"GPU": 1}``) unless the predictor is built with
+``device="cpu"``: a GPU request never runs on the CPU. The predictor class
+and its keyword arguments (``apply_fn`` among them) travel to the members
+by reference, so they must be module-level. The JAX package's
+``GBDTPredictor`` (on ``train/gbdt.py``) waits for that module's port.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -53,7 +58,60 @@ class TorchPredictor(Predictor):
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        x = torch.from_numpy(np.ascontiguousarray(batch[self._col])).to(
-            self._device)
+        """``{"predictions": ...}``; an ``apply_fn`` that returns a dict of
+        tensors gives one column each instead."""
+        x = np.ascontiguousarray(batch[self._col])
+        if not x.flags.writeable:  # torch warns on a read-only view
+            x = x.copy()
+        x = torch.from_numpy(x).to(self._device)
         out = self._apply(self._params, x)
+        if isinstance(out, dict):
+            return {k: v.cpu().numpy() for k, v in out.items()}
         return {"predictions": out.cpu().numpy()}
+
+
+class _PredictorWorker:
+    """Actor-pool member: one restored predictor per process."""
+
+    def __init__(self, predictor_cls, checkpoint_path: str,
+                 from_ckpt_kwargs: Dict[str, Any]):
+        from ..util import timeline
+
+        # Under a trace of its own, the restore's span lands in this
+        # member's timeline ("ckpt_restore:<name>").
+        prev = timeline.enter_span(timeline.new_trace_id(),
+                                   timeline.new_span_id())
+        try:
+            self._predictor = predictor_cls.from_checkpoint(
+                Checkpoint(checkpoint_path), **from_ckpt_kwargs)
+        finally:
+            timeline.exit_span(prev)
+
+    def __call__(self, batch):
+        return self._predictor.predict(batch)
+
+
+class BatchPredictor:
+    """Distributed inference over a Dataset (ref: batch_predictor.py)."""
+
+    def __init__(self, checkpoint: Checkpoint, predictor_cls,
+                 **from_ckpt_kwargs):
+        self._checkpoint = checkpoint
+        self._predictor_cls = predictor_cls
+        self._kwargs = from_ckpt_kwargs
+
+    def predict(self, dataset, *, concurrency: int = 2,
+                batch_size: Optional[int] = None):
+        """A lazy Dataset of the predictions, in the input's row order:
+        ``concurrency`` pool members, each with a card unless the
+        predictor's ``device`` is the CPU."""
+        on_cpu = torch.device(self._kwargs.get("device") or "cuda").type \
+            == "cpu"
+        return dataset.map_batches(
+            _PredictorWorker,
+            concurrency=concurrency,
+            batch_size=batch_size,
+            fn_constructor_args=(self._predictor_cls, self._checkpoint.path,
+                                 self._kwargs),
+            ray_remote_args=None if on_cpu else {"num_gpus": 1},
+        )

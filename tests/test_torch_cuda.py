@@ -867,3 +867,75 @@ def test_rllib_more_learner_on_the_card_matches_the_cpu(cuda, no_tf32,
         assert cs.dt_key_bias_effect(glrn, keys, batches[0]) <= 1e-5
     for k in ww:
         assert np.abs(gw[k] - ww[k]).max() <= 1e-4, k
+
+
+def test_iter_torch_batches_lands_on_the_card_with_the_ingest_dtypes(cuda):
+    """Dataset.iter_torch_batches puts batches on the card by default,
+    through the ingest: float64 as float32 and int64 as int32 (JAX's
+    dtypes with x64 off), or the dtype asked for."""
+    from ray_tpu_torch import data as rd
+
+    rs = np.random.RandomState(4)
+    x, y = rs.randn(40, 8), rs.randint(0, 1000, (40,))
+    ds = rd.from_numpy(x, column="x", override_num_blocks=3).zip(
+        rd.from_numpy(y, column="y", override_num_blocks=3))
+    batches = list(ds.iter_torch_batches(batch_size=16))
+    assert [len(b["y"]) for b in batches] == [16, 16, 8]
+    for b in batches:
+        assert b["x"].is_cuda and b["x"].dtype == torch.float32
+        assert b["y"].is_cuda and b["y"].dtype == torch.int32
+    np.testing.assert_array_equal(
+        torch.cat([b["x"] for b in batches]).cpu().numpy(),
+        x.astype(np.float32))
+    np.testing.assert_array_equal(
+        torch.cat([b["y"] for b in batches]).cpu().numpy(),
+        y.astype(np.int32))
+    wide = next(ds.iter_torch_batches(batch_size=16,
+                                      dtypes={"x": torch.float64}))
+    assert wide["x"].dtype == torch.float64 and wide["x"].is_cuda
+
+
+def predict_small(params, tokens):
+    """A BatchPredictor apply_fn: chip_smoke's scores on phase 4's model,
+    with this process's flash launch count beside each row."""
+    cs = _chip_smoke()
+    out = cs.score_rows(params, tokens, cs.small_f32_config())
+    out["flash_fwd"] = torch.full((tokens.shape[0],), fa.launches)
+    return out
+
+
+def test_batch_predictor_in_a_gpu_actor_matches_the_driver(cuda, tmp_path):
+    """BatchPredictor's pool member asks for a card: it restores the
+    checkpoint there and scores through the flash kernel, equal to the
+    driver's own forward on the same rows, batch by batch."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.train import BatchPredictor, Checkpoint, TorchPredictor
+
+    cs = _chip_smoke()
+    cfg = cs.small_f32_config()
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    ck = Checkpoint.from_pytree(params, str(tmp_path / "ck"))
+    tokens = np.random.RandomState(0).randint(0, 256, (12, 64)).astype(
+        np.int32)
+    want = [{k: v.cpu().numpy() for k, v in cs.score_rows(
+        params, torch.from_numpy(tokens[i:i + 4]).to(cuda), cfg).items()}
+        for i in range(0, 12, 4)]
+    rt.init(num_cpus=2)
+    try:
+        scored = BatchPredictor(ck, TorchPredictor,
+                                apply_fn=predict_small).predict(
+            rd.from_numpy(tokens, column="x", override_num_blocks=3),
+            concurrency=1, batch_size=4)
+        assert scored._stages[-1].ray_remote_args == {"num_gpus": 1}
+        got = scored.to_numpy()
+    finally:
+        rt.shutdown()
+    np.testing.assert_array_equal(
+        got["next_token"], np.concatenate([w["next_token"] for w in want]))
+    np.testing.assert_allclose(
+        got["logprob"], np.concatenate([w["logprob"] for w in want]),
+        rtol=0, atol=1e-4)
+    assert got["flash_fwd"][-1] == cfg.num_layers * 3
