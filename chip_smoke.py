@@ -173,6 +173,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      identical to phase 14b's straight run in the driver, the worker's
      launches twice phase 14b's (4 steps against 2), its steady step
      against the driver's and the host µs in next();
+  16. Serve's control plane on the port's runtime: init(num_cpus=2), then
+     serve.run of ServeProbeLLM (LLMDeployment plus a probe of its process)
+     as a GPU replica ({"num_gpus": 1, "max_concurrency": 8}) of the full
+     8B drawn from seed 0 in its own worker: its weights' digest equal to
+     phase 5's, then one warm-up request and phase 5's six requests at once
+     through the handle's streaming call, the same six through POST
+     /llm/stream on the proxy (SSE read with urllib) and two through
+     handle.remote, every output identical to phase 5's greedy tokens and
+     the replica's flash and paged launches above 0 (the kernels line's
+     serve_deploy path); the replica's start, TTFT, decode tokens/s, the
+     gap between SSE tokens and the serve plane's round trip (100 calls to
+     a no-op CPU deployment through the handle and through HTTP); the
+     replica's worker killed and replaced by the controller's health check
+     (phase 5's tokens again, the recovery seconds); serve.shutdown() ends
+     the worker, closes the proxy's port and gives the card's memory back
+     to within 1 GB;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -182,6 +198,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -191,6 +208,8 @@ import time
 
 import numpy as np
 import torch
+
+from ray_tpu_torch.serve.llm import LLMDeployment
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
@@ -1050,6 +1069,21 @@ def phase_ep_blocks(card: str):
 
 def phase_slice(card: str):
     """Llama-3-8B at full width served by the engine."""
+    cfg, params, launches = slice_served(card)
+    phase_tap_cost(cfg, params, card)
+    phase_breakdown(cfg, params, card)
+    serve_ckpt = phase_serve_checkpoint(cfg, params, card, SLICE["prompts"],
+                                        SLICE["outs"])
+    del params
+    torch.cuda.empty_cache()
+    return launches, serve_ckpt
+
+
+def slice_served(card: str):
+    """Phase 5's run: the 8B drawn on the card from seed 0 (its digest
+    kept in SLICE), the flash route checked inside the model, then
+    serve_six (its prompts, outputs and times kept in SLICE). Returns
+    (cfg, params, launches)."""
     from ray_tpu_torch.models import LlamaConfig, forward, init_params
     from ray_tpu_torch.models import num_params
 
@@ -1058,6 +1092,7 @@ def phase_slice(card: str):
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     torch.cuda.synchronize()
+    SLICE["digest"] = weight_digest(params)
     log(f"[slice] llama3_8b: {num_params(params) / 1e9:.3f} B params, "
         f"{cfg.num_layers} layers, bf16, drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s; "
@@ -1080,15 +1115,27 @@ def phase_slice(card: str):
     assert torch.isfinite(lf).all() and d <= tol, d
 
     launches, prompts, outs = serve_six(cfg, params, card, "slice", rng)
-    phase_tap_cost(cfg, params, card)
-    phase_breakdown(cfg, params, card)
-    serve_ckpt = phase_serve_checkpoint(cfg, params, card, prompts, outs)
-    del params
-    torch.cuda.empty_cache()
-    return launches, serve_ckpt
+    SLICE.update(prompts=prompts, outs=outs)
+    return cfg, params, launches
 
 
 SERVE_ENGINE = dict(max_batch=4, max_len=512, page_size=16)
+SERVE_LENS = [40, 100, 300, 60, 130, 200]  # phase 5's six prompts
+SERVE_NEW = [16, 32, 24, 32, 16, 24]  # and their new tokens
+# Phase 5's run, which phase 16 holds the served 8B against: the weights'
+# digest, the prompts and greedy outputs, TTFT ms and ms per decode step.
+SLICE = {}
+
+
+def weight_digest(params):
+    """(shape, float64 sum, sha256 of the first 65536 values) of every
+    weight tensor, in a fixed order: equal only for the same weights."""
+    out = []
+    for t in tree_tensors(params):
+        head = t.reshape(-1)[:1 << 16].float().cpu().numpy().tobytes()
+        out.append((tuple(t.shape), torch.sum(t, dtype=torch.float64).item(),
+                    hashlib.sha256(head).hexdigest()[:16]))
+    return out
 
 
 def serve_six(cfg, params, card: str, tag: str, rng, eng=None,
@@ -1108,8 +1155,7 @@ def serve_six(cfg, params, card: str, tag: str, rng, eng=None,
     if built:
         eng = LLMEngine(cfg, params, device="cuda", **SERVE_ENGINE)
     eng.generate(rng.randint(0, cfg.vocab_size, 40).tolist(), 2)  # warm-up
-    lens = [40, 100, 300, 60, 130, 200]
-    new = [16, 32, 24, 32, 16, 24]
+    lens, new = SERVE_LENS, SERVE_NEW
     if prompts is None:
         prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in lens]
     steps0 = eng.stats()["decode_steps"]
@@ -1154,6 +1200,8 @@ def serve_six(cfg, params, card: str, tag: str, rng, eng=None,
     t_dec1 = max(ts[-2] for ts in times)
     tps = decode_tokens / (t_dec1 - t_dec0)
     ttft = [r.ttft_s * 1e3 for r in reqs]
+    if tag == "slice":
+        SLICE.update(ttft_ms=ttft, step_ms=(t_dec1 - t_dec0) / steps * 1e3)
     L = cfg.num_layers
     log(f"[{tag}] 6 requests (prompts {lens}, new {new}) done in {wall:.2f} "
         f"s on {card}: {steps} decode steps, {decode_tokens} decode tokens, "
@@ -4246,6 +4294,305 @@ def phase_trainer_data(card: str, trainer_launches):
     return launches
 
 
+# ------------------------------------------- serve's control plane (16)
+
+SERVE_NOOP_CALLS = 100
+RECOVERY_TIMEOUT_S = 240.0
+
+
+class ServeProbeLLM(LLMDeployment):
+    """Phase 16's deployment: LLMDeployment, timed while it builds, plus
+    one probe of the replica's process."""
+
+    def __init__(self, *args, **kwargs):
+        self.init_ts = [time.time()]  # the constructor starts
+        super().__init__(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.init_ts.append(time.time())  # weights drawn, engine built
+
+    def probe(self, reset: bool = False, digest: bool = False):
+        """The flash and paged launch counters of this process (then set
+        to 0 if ``reset``), its pid, the engine's decode steps and the
+        constructor's times, with the weights' digest if asked."""
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.ops import paged_attention as pa
+
+        out = {"flash_fwd": fa.launches, "paged_decode": pa.launches,
+               "pid": os.getpid(), "init_ts": self.init_ts,
+               "decode_steps": self.engine.stats()["decode_steps"]}
+        if reset:
+            fa.launches = pa.launches = 0
+        if digest:
+            out["digest"] = weight_digest(self.engine.params)
+        return out
+
+
+def serve_noop(_):
+    return None
+
+
+def sse_tokens(port: int, request, stamps):
+    """POST /llm/stream: the tokens of one SSE response, each arrival's
+    time appended to ``stamps``."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/llm/stream",
+        data=json.dumps(request).encode(),
+        headers={"Content-Type": "application/json"})
+    tokens = []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        assert r.headers.get("Content-Type") == "text/event-stream"
+        for raw in r:
+            line = raw.decode().strip()
+            if line.startswith("event: error"):
+                raise RuntimeError(f"SSE error frame: {line}")
+            if line.startswith("data:"):
+                item = json.loads(line[5:].strip())
+                if item is not None:
+                    stamps.append(time.perf_counter())
+                    tokens.append(item["token"])
+    return tokens
+
+
+def at_once(fn, args_list):
+    """``fn(*args)`` for each entry in a thread of its own, all at once;
+    the results in order (a failure is raised)."""
+    out = [None] * len(args_list)
+    errors = []
+
+    def one(i, args):
+        try:
+            out[i] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i, a))
+               for i, a in enumerate(args_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        assert not t.is_alive()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def phase_serve_deploy(card: str):
+    """Phase 16: the full-width 8B deployed as a GPU replica through
+    ray_tpu_torch.serve, phase 5's requests through the handle, its
+    streaming call and the proxy's SSE, a crash and its recovery, then
+    shutdown."""
+    import signal
+    import socket
+    import urllib.request
+
+    import chip_smoke as cs  # the deployment travels as chip_smoke.<name>
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.runtime_context import current_runtime
+    from ray_tpu_torch.models import LlamaConfig
+
+    prompts, outs5 = SLICE["prompts"], SLICE["outs"]
+    reqs = [{"prompt": p, "max_new_tokens": n}
+            for p, n in zip(prompts, SERVE_NEW)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0, total = torch.cuda.mem_get_info()
+    # A whole generation takes seconds, which the replica's AIMD limiter
+    # reads as overload at the 2 s default floor: it shrinks its limit and
+    # sheds the sixth concurrent request. The floor is an environment knob
+    # that every process of the runtime reads.
+    knob = "RAY_TPU_SERVE_AIMD_LATENCY_TARGET_S"
+    old_knob = os.environ.get(knob)
+    os.environ[knob] = "600"
+    rt.init(num_cpus=2)
+    try:
+        serve.status()  # the controller first: the replica alone is timed
+        workers = set(current_runtime().worker_pids())
+        dep = serve.deployment(cs.ServeProbeLLM).options(
+            name="llm", ray_actor_options={"num_gpus": 1,
+                                           "max_concurrency": 8}).bind(
+            LlamaConfig.llama3_8b(), seed=0, **SERVE_ENGINE)
+        spawned = []
+
+        def watch():  # the replica's is the one worker the deploy starts
+            while not spawned and workers == set(
+                    current_runtime().worker_pids()):
+                time.sleep(0.005)
+            spawned.append(time.time())
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        t_submit = time.time()
+        watcher.start()
+        h = serve.run(dep)
+        t_ready = time.time()
+        spawned.append(t_ready)  # ends a watcher that saw no new worker
+        watcher.join(timeout=10)
+        spawn_ts = spawned[0]
+        probe = h.options(method="probe")
+        first = probe.remote(digest=True).result(timeout=600)
+        same = [a == b for a, b in zip(first["digest"], SLICE["digest"])]
+        log(f"[serve-deploy] serve.run of ServeProbeLLM(llama3_8b, seed=0, "
+            f"{SERVE_ENGINE}) as a GPU replica (num_gpus=1, max_concurrency="
+            f"8), worker pid {first['pid']}: submit to ready "
+            f"{t_ready - t_submit:.2f} s (its worker process started "
+            f"{spawn_ts - t_submit:.2f} s after submit, its imports until "
+            f"the constructor {first['init_ts'][0] - spawn_ts:.2f} s, "
+            f"weights drawn and engine built "
+            f"{first['init_ts'][1] - first['init_ts'][0]:.2f} s, then to the"
+            f" first ping {t_ready - first['init_ts'][1]:.2f} s); weights' "
+            f"digest against phase 5's: {sum(same)} of {len(SLICE['digest'])}"
+            f" tensors equal; on {card}")
+        assert len(same) == len(SLICE["digest"]) == 12 and all(same), same
+
+        cfg = LlamaConfig.llama3_8b()
+        warm = np.random.RandomState(0).randint(0, cfg.vocab_size, 40)
+        h.remote({"prompt": warm.tolist(), "max_new_tokens": 2}).result(
+            timeout=600)
+        probe.remote(reset=True).result(timeout=60)
+        stream = h.options(method="stream")
+
+        def handle_stream(req, stamps):
+            t0 = time.perf_counter()
+            stamps.append(t0)
+            for item in stream.stream(req):
+                stamps.append(time.perf_counter())
+                yield item["token"]
+
+        h_stamps = [[] for _ in reqs]
+        t0 = time.perf_counter()
+        h_outs = at_once(lambda r, st: list(handle_stream(r, st)),
+                         list(zip(reqs, h_stamps)))
+        h_wall = time.perf_counter() - t0
+        mid = probe.remote().result(timeout=60)
+        s_stamps = [[] for _ in reqs]
+        t0 = time.perf_counter()
+        s_outs = at_once(lambda r, st: (st.append(time.perf_counter()),
+                                        sse_tokens(h.http_port, r, st))[1],
+                         list(zip(reqs, s_stamps)))
+        s_wall = time.perf_counter() - t0
+        after_sse = probe.remote().result(timeout=60)
+        r_outs = [f.result(timeout=600)["tokens"]
+                  for f in [h.remote(r) for r in reqs[:2]]]
+        launched = probe.remote().result(timeout=60)
+        launches = {k: launched[k] for k in ("flash_fwd", "paged_decode")}
+
+        def ttft_ms(stamps):
+            return [round((st[1] - st[0]) * 1e3, 1) for st in stamps]
+
+        dec_tokens = sum(len(o) - 1 for o in h_outs)
+        t_dec0 = min(st[1] for st in h_stamps)
+        t_dec1 = max(st[-1] for st in h_stamps)
+        gaps = [b - a for st in s_stamps for a, b in zip(st[1:], st[2:])]
+        s_steps = after_sse["decode_steps"] - mid["decode_steps"]
+        s_dec = max(st[-1] for st in s_stamps) - min(st[1] for st in s_stamps)
+        differ = {how: [i for i, (a, b) in enumerate(zip(o, outs5)) if a != b]
+                  for how, o in (("stream", h_outs), ("sse", s_outs),
+                                 ("remote", r_outs))}
+        log(f"[serve-deploy] phase 5's six requests (prompts {SERVE_LENS}, "
+            f"new {SERVE_NEW}) at once through the handle's streaming call: "
+            f"{h_wall:.2f} s, TTFT ms {ttft_ms(h_stamps)}, {dec_tokens} "
+            f"decode tokens at {dec_tokens / (t_dec1 - t_dec0):.1f} tok/s; "
+            f"through SSE (POST /llm/stream): {s_wall:.2f} s, TTFT ms "
+            f"{ttft_ms(s_stamps)}; phase 5's engine in the driver: TTFT ms "
+            f"{[round(x, 1) for x in SLICE['ttft_ms']]}; on {card}")
+        log(f"[serve-deploy] median gap between SSE tokens at the client "
+            f"{np.median(gaps) * 1e3:.2f} ms; the replica's engine "
+            f"{s_dec / s_steps * 1e3:.2f} ms per decode step over the SSE "
+            f"run ({s_steps} steps), phase 5's in the driver "
+            f"{SLICE['step_ms']:.2f} ms; on {card}")
+        log(f"[serve-deploy] greedy tokens against phase 5's: stream "
+            f"{6 - len(differ['stream'])} of 6, SSE {6 - len(differ['sse'])} "
+            f"of 6, handle.remote {2 - len(differ['remote'])} of 2 identical "
+            f"(differ: {differ}); launches in the replica {launches}")
+        assert not any(differ.values()), (differ, h_outs, s_outs, r_outs)
+        assert launches["flash_fwd"] > 0 and launches["paged_decode"] > 0, \
+            launches
+
+        noop = serve.run(serve.deployment(cs.serve_noop).bind(),
+                         name="noop")
+        noop.remote(None).result(timeout=60)
+
+        def median_ms(fn, n=SERVE_NOOP_CALLS):
+            fn()
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times))
+
+        def http_noop():
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{h.http_port}/noop", data=b"null",
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert json.loads(r.read()) == {"result": None}
+
+        handle_ms = median_ms(lambda: noop.remote(None).result(timeout=60))
+        http_ms = median_ms(http_noop)
+        log(f"[serve-deploy] the serve plane's cost per request: median of "
+            f"{SERVE_NOOP_CALLS} calls to a no-op CPU deployment "
+            f"{handle_ms:.3f} ms through the handle, {http_ms:.3f} ms "
+            f"through HTTP (host times, not held); on {card}")
+
+        pid = launched["pid"]
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        attempts, errors = 0, []
+        while True:
+            attempts += 1
+            stamps = [time.perf_counter()]
+            try:
+                got = list(handle_stream(reqs[0], stamps))
+                break
+            except Exception as e:  # noqa: BLE001 — retried until replaced
+                errors.append(type(e).__name__)
+                if time.perf_counter() - t_kill > RECOVERY_TIMEOUT_S:
+                    raise
+                time.sleep(0.5)
+        recovery_s = stamps[1] - t_kill
+        new_pid = probe.remote().result(timeout=60)["pid"]
+        log(f"[serve-deploy] replica worker {pid} killed (SIGKILL): the "
+            f"controller's health check replaced it (new worker {new_pid});"
+            f" {attempts} attempts (failed: {errors}), first token "
+            f"{recovery_s:.2f} s after the kill; tokens "
+            f"{'identical to' if got == outs5[0] else 'DIFFER from'} phase "
+            f"5's; on {card}")
+        assert got == outs5[0] and new_pid != pid, (got, outs5[0], new_pid)
+
+        port = h.http_port
+        serve.shutdown()
+        left = alive_pids([new_pid])
+        try:
+            socket.create_connection(("127.0.0.1", port), 2.0).close()
+            port_open = True
+        except OSError:
+            port_open = False
+        deadline = time.monotonic() + 30
+        while True:
+            free1 = torch.cuda.mem_get_info()[0]
+            if free0 - free1 <= 2**30 or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        log(f"[serve-deploy] serve.shutdown(): replica worker alive after "
+            f"{left}, proxy port {port} {'OPEN' if port_open else 'closed'}"
+            f"; the card's free memory {free1 / 2**30:.2f} GiB against "
+            f"{free0 / 2**30:.2f} GiB before the deploy (of "
+            f"{total / 2**30:.2f} GiB); on {card}")
+        assert not left and not port_open, (left, port_open)
+        assert free0 - free1 <= 2**30, (free0, free1)
+    finally:
+        rt.shutdown()
+        if old_knob is None:
+            del os.environ[knob]
+        else:
+            os.environ[knob] = old_knob
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4285,6 +4632,8 @@ def main() -> int:
     predict = {"batch_predict": phase_batch_predict(card)}
     torch.cuda.empty_cache()
     train["trainer_data"] = phase_trainer_data(card, train["trainer"])
+    torch.cuda.empty_cache()
+    serve["serve_deploy"] = phase_serve_deploy(card)
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"

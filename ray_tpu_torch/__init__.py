@@ -21,6 +21,7 @@ from .core import (  # noqa: F401
     ActorHandle,
     GetTimeoutError,
     ObjectRef,
+    ObjectRefGenerator,
     RayTpuError,
     SpmdActorGroup,
     SpmdGroupError,

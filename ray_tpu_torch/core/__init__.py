@@ -1,7 +1,7 @@
 """ray_tpu_torch.core: the port's single-node task/actor/object runtime
 (counterpart of the head-mode, single-node surface of ``ray_tpu.core``:
 ``init``, ``remote``, ``get``, ``wait``, ``put``, ``kill``, placement
-groups, the KV, ``SpmdActorGroup``). CPU and GPU tasks and actors run in
+groups, the KV, ``SpmdActorGroup``, streaming returns). CPU and GPU tasks and actors run in
 worker processes of their own; see ``runtime.py``."""
 
 from .actor import ActorClass, ActorHandle, ActorMethod, get_actor  # noqa: F401
@@ -22,7 +22,9 @@ from .api import (  # noqa: F401
 )
 from .exceptions import (  # noqa: F401
     ActorDiedError,
+    DeadlineExceededError,
     GetTimeoutError,
+    OverloadedError,
     RayTpuError,
     RuntimeNotInitializedError,
     TaskError,
@@ -38,3 +40,4 @@ from .remote_function import RemoteFunction  # noqa: F401
 from .runtime_context import get_runtime_context  # noqa: F401
 from .scheduling_strategies import PlacementGroupSchedulingStrategy  # noqa: F401
 from .spmd import SpmdActorGroup, SpmdGroupError  # noqa: F401
+from .streaming import ObjectRefGenerator  # noqa: F401

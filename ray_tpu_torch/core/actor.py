@@ -8,7 +8,10 @@ one at a time in the order they were submitted, or, with
 ``num_cpus`` (default 0, as in the JAX package), ``num_gpus``,
 ``resources``, ``scheduling_strategy``, ``max_restarts`` (default 0),
 ``max_concurrency`` (default 1) and ``name``. Every actor answers
-``__rtpu_ping__`` with ``"ok"`` once its constructor has run.
+``__rtpu_ping__`` with ``"ok"`` once its constructor has run. A method
+called with ``.options(num_returns="streaming")`` returns an
+:class:`~.streaming.ObjectRefGenerator`; every call carries the caller's
+ambient deadline (``util/overload``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import functools
 from typing import Any, Dict, Optional
 
-from .remote_function import _build_resources
+from .remote_function import _build_resources, wrap_returns
 from .runtime_context import current_runtime
 
 
@@ -32,6 +35,8 @@ class ActorMethod:
                            opts.get("num_returns", 1))
 
     def remote(self, *args, **kwargs):
+        from ..util.overload import ambient_deadline
+
         rt = current_runtime()
         refs = rt.submit(dict(
             kind="call",
@@ -39,8 +44,9 @@ class ActorMethod:
             method=self._method_name,
             name=f"{self._handle._class_name}.{self._method_name}",
             num_returns=self._num_returns,
+            deadline=ambient_deadline(),
         ), args, kwargs)
-        return refs[0] if self._num_returns == 1 else refs
+        return wrap_returns(refs, self._num_returns)
 
     def __call__(self, *args, **kwargs):
         raise TypeError("Actor methods must be called with '.remote()'.")

@@ -42,6 +42,35 @@ class Config:
     train_rank_timeout_s: float = 30.0
     # How often each rank publishes its heartbeat and step counter.
     train_heartbeat_interval_s: float = 2.0
+    # --- serve overload control (util/overload.py mechanisms) -------------
+    # Default end-to-end budget for one serve request: seeds the deadline
+    # that propagates ingress -> handle -> replica (and nested calls).
+    serve_default_request_timeout_s: float = 120.0
+    # Proxy admission: AIMD concurrency ceiling per deployment, and the
+    # bounded wait queue behind it (requests beyond limit+queue shed with
+    # 503 + Retry-After; queued requests are evicted by age when their
+    # deadline expires).
+    serve_proxy_concurrency: int = 128
+    serve_shed_queue_len: int = 64
+    # Latency floor feeding the AIMD limiters (proxy + replica): a
+    # completion is an overload signal (limit shrinks multiplicatively)
+    # when slower than max(this, 2x the service's rolling latency
+    # baseline).
+    serve_aimd_latency_target_s: float = 2.0
+    # Per-replica circuit breaker: error-rate threshold over the rolling
+    # window, minimum observations before it can trip, and the base
+    # open-state delay before the first half-open probe (doubles with
+    # jitter on every failed probe, util/backoff.py).
+    serve_breaker_error_threshold: float = 0.5
+    serve_breaker_min_volume: int = 5
+    serve_breaker_open_s: float = 1.0
+    # A replica whose breaker handles report OPEN continuously for this
+    # long is ejected by the controller (surge-replace, then drain +
+    # kill). <= 0 disables ejection.
+    serve_breaker_eject_s: float = 30.0
+    # Retry-budget deposit per first-try request (retries spend 1 token
+    # each): handle retry volume stays <= this fraction of traffic.
+    serve_retry_budget_ratio: float = 0.2
 
     def __post_init__(self):
         for f in dataclasses.fields(self):

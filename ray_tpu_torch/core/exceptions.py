@@ -79,6 +79,32 @@ class GetTimeoutError(RayTpuError, TimeoutError):
     pass
 
 
+class DeadlineExceededError(RayTpuError, TimeoutError):
+    """The request's end-to-end deadline budget expired. Raised on the
+    worker BEFORE execution when an expired task arrives (the request
+    never occupies the card) and cooperatively DURING execution at
+    cancellation points (``util/overload.check_deadline``, streamed-item
+    seams). A ``TimeoutError`` so generic timeout handling applies."""
+
+
+class OverloadedError(RayTpuError):
+    """The request was shed by overload control before executing: the
+    proxy's admission gate, a replica's adaptive concurrency limit, or
+    a router with every replica breaker open. ``retry_after_s`` is the
+    backpressure hint ingresses surface as ``Retry-After``."""
+
+    def __init__(self, message: str = "overloaded",
+                 retry_after_s: float = 1.0):
+        self.retry_after_s = float(retry_after_s)
+        super().__init__(message)
+
+    def __reduce__(self):
+        # Default Exception reduce replays __init__(*args) and would
+        # drop retry_after_s; rebuild explicitly (sheds cross process
+        # boundaries: replica -> handle -> ingress).
+        return (OverloadedError, (str(self), self.retry_after_s))
+
+
 class RuntimeNotInitializedError(RayTpuError):
     def __init__(self):
         super().__init__(

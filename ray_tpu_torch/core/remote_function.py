@@ -2,7 +2,10 @@
 
 Options: ``num_cpus`` (default 1), ``num_gpus``, ``resources``,
 ``scheduling_strategy``, ``max_retries`` (of a worker crash; default
-``DEFAULT_MAX_RETRIES``), ``num_returns`` and ``name``. A task asking for
+``DEFAULT_MAX_RETRIES``), ``num_returns`` (``"streaming"``: an
+:class:`~.streaming.ObjectRefGenerator`, never retried) and ``name``.
+Every task carries the caller's ambient deadline (``util/overload``). A
+task asking for
 ``"GPU"`` (whole cards) runs in a GPU-typed worker that sees its assigned
 cards; every other task runs in a CPU-typed worker that sees none.
 """
@@ -17,6 +20,15 @@ from .runtime_context import current_runtime
 
 # Retries of a task whose worker process died.
 DEFAULT_MAX_RETRIES = 3
+
+
+def wrap_returns(refs, num_returns):
+    """What ``.remote()`` returns for the result refs of a submission."""
+    if num_returns == "streaming":
+        from .streaming import ObjectRefGenerator
+
+        return ObjectRefGenerator(refs[0])
+    return refs[0] if num_returns == 1 else refs
 
 
 def _build_resources(opts: Dict[str, Any],
@@ -43,6 +55,8 @@ class RemoteFunction:
         return RemoteFunction(self._fn, merged)
 
     def remote(self, *args, **kwargs):
+        from ..util.overload import ambient_deadline
+
         rt = current_runtime()
         num_returns = self._options.get("num_returns", 1)
         max_retries = self._options.get("max_retries", DEFAULT_MAX_RETRIES)
@@ -55,8 +69,9 @@ class RemoteFunction:
             resources=_build_resources(self._options, default_num_cpus=1),
             strategy=self._options.get("scheduling_strategy"),
             max_retries=max_retries,
+            deadline=ambient_deadline(),
         ), args, kwargs)
-        return refs[0] if num_returns == 1 else refs
+        return wrap_returns(refs, num_returns)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

@@ -28,6 +28,21 @@ auth key and speak pickled tuples (``multiprocessing.connection``).
   the task; refs nested deeper travel as refs and the worker ``get``\\ s
   them. Workers forward ``get``, ``put``, ``wait``, the KV and nested
   submissions to the driver.
+- **Streaming returns.** A task or actor call submitted with
+  ``num_returns="streaming"`` has one return, its completion (the item
+  count, or its error), and a stream record keyed by that object's id.
+  The worker sends each value the generator yields over its connection as
+  it is produced (``("item", ...)``), before the call's ``done``, so the
+  driver stores every item ahead of the completion; the consumer's
+  :class:`~.streaming.ObjectRefGenerator` takes them in order with
+  :meth:`DriverRuntime.stream_next`. The stream holds each item until the
+  consumer takes it; dropping the generator frees the items never taken,
+  and items that arrive after that are not stored. A streaming task is
+  never retried (it would yield its items again).
+- **Deadlines.** A submission made under an ambient deadline
+  (``util/overload``) carries it to the worker, which installs it around
+  the call, refuses the call if it has expired already, and checks it
+  between a stream's items.
 - **Object lifetimes.** The driver counts, for each object, its own live
   refs, the stored values and queued tasks that hold a ref to it, and the
   workers it handed a ref to. A worker borrows an object from the moment
@@ -69,6 +84,7 @@ from .resources import GPU, NodeResources, ResourceSet
 
 WORKER_MODULE = "ray_tpu_torch.core.worker_main"
 PING = "__rtpu_ping__"
+STREAMING = "streaming"  # the num_returns of a streaming call
 # A started worker that has not connected by then is killed.
 WORKER_START_TIMEOUT_S = 120.0
 # Worker processes the node runs at once; at the cap an idle worker of
@@ -159,6 +175,16 @@ class _Object:
         return len(self.blob or self.error or b"")
 
 
+class _Stream:
+    """The items a streaming call has produced and its consumer has not
+    taken yet (``None`` once taken); the stream holds a ref to each."""
+
+    __slots__ = ("items",)
+
+    def __init__(self):
+        self.items: List[Optional[str]] = []
+
+
 class _Task:
     """A normal task, an actor creation or an actor call."""
 
@@ -173,7 +199,11 @@ class _Task:
         self.num_returns = spec.get("num_returns", 1)
         self.resources: ResourceSet = spec.get("resources") or ResourceSet()
         self.strategy = spec.get("strategy")
-        self.retries_left = int(spec.get("max_retries", 0))
+        # The completion object's id of a streaming call, its stream's key.
+        self.stream: Optional[str] = None
+        self.retries_left = 0 if self.num_returns == STREAMING else \
+            int(spec.get("max_retries", 0))
+        self.deadline = float(spec.get("deadline") or 0.0)
         self.args_blob = args_blob
         self.deps = deps
         self.nested = nested
@@ -278,6 +308,7 @@ class DriverRuntime:
         self._pgs: Dict[str, _PG] = {}
         self._pending_pgs: List[_PG] = []
         self._running: Dict[str, _Task] = {}
+        self._streams: Dict[str, _Stream] = {}
         self._fn_cache: Dict[int, Tuple[Any, bytes]] = {}
         self._closing = False
         self._authkey = secrets.token_bytes(16)
@@ -468,6 +499,66 @@ class DriverRuntime:
         with self._lock:
             return self._store_used, self._store_capacity
 
+    # ----------------------------------------------------------- streams
+
+    def _stream_item(self, tid: str, blob: bytes, nested: List[str]) -> None:
+        """A streaming call yielded a value (lock held)."""
+        task = self._running.get(tid)
+        st = self._streams.get(task.stream) if task is not None and \
+            task.stream else None
+        if st is None:
+            return  # the consumer dropped the stream: nobody will read it
+        oid = self._new_object()
+        self.add_ref(oid)  # the stream's hold, until the consumer takes it
+        st.items.append(oid)
+        self._store(oid, blob=blob, nested=nested)
+
+    def stream_next(self, sid: str, index: int, timeout: Optional[float],
+                    borrower: Optional[_Worker] = None):
+        """Item ``index`` of stream ``sid`` once it is produced:
+        ``("item", ref)`` (for a worker: the object id, lent to it),
+        ``("end", None)`` after the last item, ``("error", blob)`` when the
+        call failed after the items before it. Raises
+        :class:`GetTimeoutError` when nothing came within ``timeout``."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while True:
+                st = self._streams.get(sid)
+                if st is None:
+                    raise ValueError(f"stream {sid} was dropped")
+                if index < len(st.items):
+                    oid, st.items[index] = st.items[index], None
+                    if borrower is None:
+                        out = ObjectRef(oid)
+                    else:
+                        self._borrow(borrower, [oid])
+                        out = oid
+                    self.release_ref(oid)  # the stream's hold
+                    return "item", out
+                done = self._objects.get(sid)
+                if done is not None and done.ready:
+                    del self._streams[sid]
+                    if done.error is not None:
+                        return "error", done.error
+                    return "end", None
+                left = None if deadline is None else \
+                    deadline - time.monotonic()
+                if left is not None and left <= 0:
+                    raise GetTimeoutError(
+                        f"stream item {index} not produced within "
+                        f"{timeout}s")
+                self._cv.wait(1.0 if left is None else min(left, 1.0))
+
+    def stream_drop(self, sid: str) -> None:
+        """The consumer dropped the stream: free the items it never
+        took."""
+        with self._lock:
+            st = self._streams.pop(sid, None)
+            if st is not None:
+                for oid in st.items:
+                    if oid is not None:
+                        self.release_ref(oid)
+
     # ---------------------------------------------------------------- KV
 
     def kv_put(self, key: str, value: bytes, overwrite: bool = True) -> bool:
@@ -531,7 +622,8 @@ class DriverRuntime:
             if self._closing:
                 raise RuntimeError("the runtime is shutting down")
             kind = spec["kind"]
-            n = 0 if kind == "create" else spec.get("num_returns", 1)
+            n = spec.get("num_returns", 1)
+            n = 0 if kind == "create" else 1 if n == STREAMING else n
             returns = [self._new_object() for _ in range(n)]
             if borrower is None:
                 refs = [ObjectRef(o) for o in returns]
@@ -540,6 +632,9 @@ class DriverRuntime:
                 refs = returns
             keep = [ObjectRef(o) for o in deps + nested]
             task = _Task(spec, blob, deps, nested, keep, returns)
+            if task.num_returns == STREAMING:
+                task.stream = returns[0]
+                self._streams[task.stream] = _Stream()
             if kind == "create":
                 aid = new_id()
                 actor = _Actor(aid, task, int(spec.get("max_restarts", 0)),
@@ -823,7 +918,7 @@ class DriverRuntime:
             task = w.task
             w.state = "busy"
             msg = ("task", task.tid, task.name, task.fn, task.args_blob,
-                   self._hand_args(w, task), task.num_returns)
+                   self._hand_args(w, task), task.num_returns, task.deadline)
         self._running[task.tid] = task
         self._send(w, msg)
 
@@ -855,7 +950,8 @@ class DriverRuntime:
             self._running[call.tid] = call
             self._send(actor.worker, (
                 "call", call.tid, call.name, call.method, call.args_blob,
-                self._hand_args(actor.worker, call), call.num_returns))
+                self._hand_args(actor.worker, call), call.num_returns,
+                call.deadline))
 
     def _send(self, w: _Worker, msg) -> None:
         if w.conn is None or w.state == "dead":
@@ -937,16 +1033,21 @@ class DriverRuntime:
             if msg[0] == "done":
                 with self._lock:
                     self._done(w, *msg[1:])
+            elif msg[0] == "item":
+                with self._lock:
+                    self._stream_item(*msg[1:])
             elif msg[0] == "refs":
                 with self._lock:
                     for item in msg[1]:
                         if item[0] == "pin":
                             self.escape(item[1])
+                        elif item[0] == "drop":
+                            self.stream_drop(item[1])
                         else:
                             self._unborrow(w, item[1], item[2])
             elif msg[0] == "req":
                 _, rid, op, args = msg
-                if op in ("get", "wait_ids", "pg_wait"):
+                if op in ("get", "wait_ids", "pg_wait", "stream_next"):
                     threading.Thread(target=self._serve, daemon=True,
                                      args=(w, rid, op, args)).start()
                 else:
@@ -963,6 +1064,8 @@ class DriverRuntime:
                 result = (True, self.put_blob(*args, borrower=w))
             elif op == "get":
                 result = (True, self.get_blobs(*args, borrower=w))
+            elif op == "stream_next":
+                result = (True, self.stream_next(*args, borrower=w))
             else:
                 result = (True, getattr(self, op)(*args))
         except Exception as e:  # noqa: BLE001 — raised again in the worker

@@ -14,10 +14,17 @@ forwards ``get``, ``put``, ``wait``, the KV and nested submissions to the
 driver, and counts the process's refs: when the last ref to an object
 goes, it tells the driver how many it was handed, so the driver can free
 the object. When the driver goes away the worker exits.
+
+A call submitted under a deadline runs with it installed as the thread's
+ambient deadline (``util/overload``) and is refused before it starts if
+the deadline has passed. A streaming call (``num_returns="streaming"``)
+sends each value its generator yields to the driver as it comes, checking
+the deadline between items, and then its item count as its result.
 """
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import os
 import pickle
@@ -29,10 +36,18 @@ from concurrent.futures import ThreadPoolExecutor
 from multiprocessing.connection import Client
 from typing import Any, Dict, List, Optional
 
+from ..util import overload
 from . import runtime_context
 from .exceptions import TaskError
 from .reference import ObjectRef, dumps_with_refs
-from .runtime import PING, dump_callable, dumps, pack_args, unpack_args
+from .runtime import (
+    PING,
+    STREAMING,
+    dump_callable,
+    dumps,
+    pack_args,
+    unpack_args,
+)
 
 
 class WorkerRuntime:
@@ -124,6 +139,11 @@ class WorkerRuntime:
         self._outbox.append(("pin", oid))
         self._outbox_ready.set()
 
+    def stream_drop(self, sid: str) -> None:
+        # Runs in a generator's __del__: queued like a release.
+        self._outbox.append(("drop", sid))
+        self._outbox_ready.set()
+
     # ------------------------------------------------------------ the API
 
     def ensure_function(self, fn) -> bytes:
@@ -180,8 +200,12 @@ class WorkerRuntime:
     def store_usage(self):
         return self.request("store_usage")
 
-    def kill_actor(self, aid: str) -> None:
-        self.request("kill_actor", aid)
+    def stream_next(self, sid: str, index: int, timeout: Optional[float]):
+        kind, value = self.request("stream_next", sid, index, timeout)
+        return kind, (ObjectRef(value) if kind == "item" else value)
+
+    def kill_actor(self, aid: str, no_restart: bool = True) -> None:
+        self.request("kill_actor", aid, no_restart)
 
     def get_named_actor(self, name: str):
         return self.request("get_named_actor", name)
@@ -228,9 +252,13 @@ class _Executor:
         kind, tid, name = msg[0], msg[1], msg[2]
         rt = self.rt
         rt.current_task_id = tid
+        deadline = msg[7] if kind != "create" else 0.0
+        prev_deadline = overload.set_ambient_deadline(deadline)
         try:
+            if deadline:  # an expired call never runs
+                overload.check_deadline(name)
             if kind == "call":
-                method, blob, deps, num_returns = msg[3:]
+                method, blob, deps, num_returns = msg[3:7]
                 args, kwargs = unpack_args(blob, _values(deps))
                 if method == PING:
                     result = "ok"
@@ -249,6 +277,9 @@ class _Executor:
                     return
                 num_returns = msg[6]
                 result = fn(*args, **kwargs)
+            if num_returns == STREAMING:
+                result = _stream(rt, tid, name, result, deadline)
+                num_returns = 1
             if num_returns == 1:
                 blobs = [dumps_with_refs(result)]
             else:
@@ -266,7 +297,24 @@ class _Executor:
                      dumps(TaskError.from_exception(e, name)))
         finally:
             rt.current_task_id = None
+            overload.set_ambient_deadline(prev_deadline)
         rt.send(reply)
+
+
+def _stream(rt: WorkerRuntime, tid: str, name: str, value,
+            deadline: float) -> int:
+    """Send each item of a streaming call's result to the driver as it is
+    produced; returns the count. Item seams are the call's cancellation
+    points: a stream that outlives its deadline stops there."""
+    if not (inspect.isgenerator(value) or hasattr(value, "__next__")):
+        value = () if value is None else (value,)
+    count = 0
+    for item in value:
+        if deadline:
+            overload.check_deadline(name)
+        rt.send(("item", tid, *dumps_with_refs(item)))
+        count += 1
+    return count
 
 
 def _values(blobs: List[bytes]) -> list:

@@ -39,6 +39,7 @@ from ..models.generation import (
     paged_prefill,
     sample_logits,
 )
+from ..models.convert import params_from_numpy
 from ..models.llama import LlamaConfig, init_params
 from ..train.checkpoint import Checkpoint
 from ..util.device_metrics import instrumented_step
@@ -340,11 +341,19 @@ class LLMEngine:
 
 
 class LLMDeployment:
-    """Serve deployment wrapping an engine (a plain class; the serve
-    control plane is not ported). ``stream`` yields tokens as generated.
-    Without ``params`` the weights come from ``checkpoint_path`` (a
+    """Serve deployment wrapping an engine: deploy it with
+    ``serve.run(serve.deployment(LLMDeployment).options(
+    ray_actor_options={"num_gpus": 1, "max_concurrency": N}).bind(cfg))``
+    so concurrent requests join the running decode loop (continuous
+    batching) in a GPU replica. ``stream`` yields tokens as generated —
+    route it through the proxy's SSE path (``POST /<name>/stream``) for
+    live token streaming. ``params`` is the port's parameter tree, or a
+    tree of numpy arrays (the JAX package's weights as numpy, say), which
+    ``models/convert.params_from_numpy`` moves onto ``device``. Without
+    ``params`` the weights come from ``checkpoint_path`` (a
     ``train.checkpoint`` directory holding the parameter tree, restored
-    onto ``device``), else they are drawn from ``seed``."""
+    onto ``device``), else they are drawn from ``seed``. ``device``
+    defaults to the card."""
 
     def __init__(self, cfg: Optional[LlamaConfig] = None, params=None, *,
                  checkpoint_path=None, max_batch: int = 8, max_len: int = 512,
@@ -353,6 +362,8 @@ class LLMDeployment:
                  device: DeviceLike = None):
         dev = resolve_device(device)
         cfg = cfg if cfg is not None else LlamaConfig.tiny()
+        if params is not None and isinstance(params["embed"], np.ndarray):
+            params = params_from_numpy(params, cfg, dev)
         if params is None and checkpoint_path:
             params = Checkpoint(checkpoint_path).as_pytree(device=dev)
         if params is None:

@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the checkpoint path (counterpart of
-the parts of ``ray_tpu/util/faults.py`` that the checkpoint fires).
+"""Deterministic fault injection for the checkpoint, train and serve paths
+(counterpart of the parts of ``ray_tpu/util/faults.py`` that they fire).
 
 A plan is a list of specs (:func:`validate_spec`); :func:`apply_plan` arms
 it in THIS process and :func:`fire` is the hook a call site runs where a
@@ -9,7 +9,10 @@ real fault would surface. Disarmed, :func:`fire` is one truth test.
   top of save and of restore, with ``op="save"`` or ``op="restore"``) and
   :data:`TRAIN_WORKER` (``train/session.py``'s ``report`` fires it with
   ``rank`` and ``run``: a rank killed mid-step, which the gang supervisor
-  answers with a whole-gang restart).
+  answers with a whole-gang restart), and :data:`SERVE_REPLICA`
+  (``serve/replica.py`` fires it inside each request's measured window,
+  with ``deployment``, ``replica`` and ``method``: a slow or faulty
+  replica, scoped to one with ``match={"replica": <id>}``).
 - Modes: ``always``, ``once`` (the Nth eligible hit), ``every`` (every
   Nth hit), ``prob`` (seeded RNG); per-process counters, so a seeded run
   replays identically. ``max_fires`` caps the firings (0: no cap).
@@ -36,10 +39,17 @@ import random
 import threading
 from typing import Any, Dict, List, Tuple
 
+SERVE_REPLICA = "serve_replica"
 CHECKPOINT_IO = "checkpoint_io"
 TRAIN_WORKER = "train_worker"
 
 FAULT_POINTS: Dict[str, str] = {
+    SERVE_REPLICA: "serve replica request execution "
+                   "(degradation: handle retries another replica under "
+                   "the retry budget, the sick replica's circuit "
+                   "breaker opens, proxies shed under sustained "
+                   "latency; scope to one replica via "
+                   "match={'replica': ...})",
     TRAIN_WORKER: "train worker step boundary (session.report) "
                   "(degradation: the rank dies mid-step, the gang "
                   "supervisor aborts the whole gang and restarts it "

@@ -68,6 +68,35 @@ def new_trace_id() -> str:
     return uuid.uuid4().hex  # 32 hex chars, the W3C trace-id width
 
 
+def parse_traceparent(header: Optional[str]):
+    """Parse a W3C ``traceparent`` header into (trace_id, span_id), or
+    None if absent/malformed. Lets an upstream service own the trace root
+    so the serve spans join its trace instead of starting an orphan
+    one."""
+    if not header:
+        return None
+    parts = header.strip().split("-")
+    if len(parts) < 4:
+        return None
+    trace_id, span_id = parts[1].lower(), parts[2].lower()
+    if len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    try:
+        if int(trace_id, 16) == 0 or int(span_id, 16) == 0:
+            return None
+    except ValueError:
+        return None
+    return trace_id, span_id
+
+
+def format_traceparent(trace_id: str, span_id: str) -> str:
+    """Render a (trace_id, span_id) context as a W3C traceparent value
+    (ids are zero-padded/truncated to wire width)."""
+    tid = (trace_id + "0" * 32)[:32]
+    sid = (span_id + "0" * 16)[:16]
+    return f"00-{tid}-{sid}-01"
+
+
 def current_span():
     """(trace_id, span_id) of the active span in this thread, or None."""
     return getattr(_ctx, "span", None)
@@ -124,17 +153,19 @@ def span_event(name: str) -> None:
 
 
 def record_span(name: str, start: float, end: float,
-                parent: Optional[tuple] = None) -> Optional[str]:
+                parent: Optional[tuple] = None,
+                span_id: Optional[str] = None) -> Optional[str]:
     """Record one completed span (``start``/``end`` in ``time.time()``
     seconds) under ``parent`` ((trace_id, span_id); default: the thread's
-    active context). Returns the new span id, or None when nothing was
-    recorded (no context, or recording off)."""
+    active context), with ``span_id`` if given (a root span whose id was
+    handed out while it ran) else a new one. Returns the span id, or None
+    when nothing was recorded (no context, or recording off)."""
     if not _ENABLED:
         return None
     ctx = parent if parent is not None else current_span()
     if ctx is None:
         return None
-    sid = new_span_id()
+    sid = span_id or new_span_id()
     _buffer.record(name, start, end, trace_id=ctx[0], span_id=sid,
                    parent_id=ctx[1])
     return sid

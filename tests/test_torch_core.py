@@ -129,6 +129,39 @@ class Holder:
         return self.r.get(self.box[0])
 
 
+def produce(n, delay, fail_at=-1):
+    """Yields (i, the time it was made) n times, raising at ``fail_at``."""
+    for i in range(n):
+        if i == fail_at:
+            raise ValueError(f"producer failed at {i}")
+        time.sleep(delay)
+        yield i, time.time()
+
+
+def ambient_deadline(pkg):
+    return importlib.import_module(
+        pkg + ".util.overload").ambient_deadline()
+
+
+class Streamer:
+    def __init__(self):
+        self.active = 0
+        self.peak = 0
+
+    def items(self, n, delay):
+        self.active += 1
+        self.peak = max(self.peak, self.active)
+        try:
+            for i in range(n):
+                time.sleep(delay)
+                yield {"i": i}
+        finally:
+            self.active -= 1
+
+    def peak_active(self):
+        return self.peak
+
+
 class RankProbe:
     def __init__(self, rank):
         self.rank = rank
@@ -459,6 +492,99 @@ def test_concurrent_submitters_lose_no_result_or_resource(port_rt):
     with rt._lock:
         unpinned = [o for o, obj in rt._objects.items() if not obj.pinned]
     assert unpinned == []
+
+
+def test_streaming_returns_match_jax(both):
+    """num_returns="streaming" on a task and an actor method: the items in
+    order, then the completion's count; a producer's error after the items
+    yielded before it."""
+    def program(r):
+        gen = r.remote(produce).options(num_returns="streaming").remote(
+            4, 0.01)
+        items = [r.get(ref)[0] for ref in gen]
+        failing = r.remote(produce).options(num_returns="streaming").remote(
+            5, 0.01, 2)
+        got = []
+        with pytest.raises(ValueError, match="producer failed at 2"):
+            for ref in failing:
+                got.append(r.get(ref)[0])
+        a = r.remote(Streamer).options(max_concurrency=2).remote()
+        agen = a.items.options(num_returns="streaming").remote(3, 0.0)
+        return items, r.get(gen.completed), got, [r.get(x) for x in agen]
+
+    got = _each(both, program)
+    assert got["jax"] == got["port"] == (
+        [0, 1, 2, 3], 4, [0, 1], [{"i": 0}, {"i": 1}, {"i": 2}])
+
+
+def test_stream_items_arrive_while_the_producer_runs(port_rt):
+    """The first item is read before the producer makes its second, a
+    0.5 s gap later: items do not wait for the call to end."""
+    r = port_rt
+    gen = r.remote(produce).options(num_returns="streaming").remote(4, 0.5)
+    read, made = [], []
+    for ref in gen:
+        made.append(r.get(ref)[1])
+        read.append(time.time())
+    assert len(read) == 4 and read[0] < made[1], (read, made)
+
+
+def test_dropped_stream_frees_its_items(port_rt):
+    """A consumer that takes one item and drops the generator leaves no
+    item behind in the driver, taken or not, produced before or after the
+    drop."""
+    import gc
+
+    from ray_tpu_torch.core.runtime_context import current_runtime
+
+    r, rt = port_rt, current_runtime()
+    with rt._lock:
+        before = len(rt._objects)
+    gen = r.remote(produce).options(num_returns="streaming").remote(8, 0.05)
+    first = next(gen)
+    assert r.get(first)[0] == 0
+    time.sleep(0.15)  # a few more made, never taken
+    del gen, first
+    gc.collect()
+    time.sleep(0.6)  # the rest are made after the drop
+    with rt._lock:
+        assert rt._streams == {}
+        after = len(rt._objects)
+    assert _poll(lambda: len(rt._objects), before) == before, (before, after)
+
+
+def test_streams_run_at_once_on_a_concurrent_actor(port_rt):
+    """Two streaming calls on an actor with max_concurrency=2 produce at
+    the same time, each consumer reading its own items in order."""
+    r = port_rt
+    a = r.remote(Streamer).options(max_concurrency=2).remote()
+    gens = [a.items.options(num_returns="streaming").remote(5, 0.1)
+            for _ in range(2)]
+    outs = [[r.get(ref)["i"] for ref in g] for g in gens]
+    assert outs == [list(range(5))] * 2
+    assert r.get(a.peak_active.remote()) == 2  # not one after the other
+    r.kill(a)
+
+
+def test_deadline_is_carried_into_tasks_and_refuses_expired_ones(both):
+    """A task submitted under an expired ambient deadline never runs
+    (DeadlineExceededError); a live one is installed in the task
+    (tests/test_overload.py's deadline propagation)."""
+    def program(r):
+        ov = importlib.import_module(r.__name__ + ".util.overload")
+        f = r.remote(ambient_deadline)
+        with ov.deadline_scope(time.time() - 0.5):
+            expired = f.remote(r.__name__)
+        with pytest.raises(TimeoutError) as ei:
+            r.get(expired, timeout=30)
+        dl = time.time() + 30.0
+        with ov.deadline_scope(dl):
+            seen = r.get(f.remote(r.__name__), timeout=30)
+        return type(ei.value).__name__, abs(seen - dl) < 1e-6, \
+            r.get(f.remote(r.__name__))
+
+    got = _each(both, program)
+    assert got["jax"] == got["port"] == ("DeadlineExceededError", True, 0.0)
 
 
 def test_refs_that_pass_through_workers_are_freed(port_rt):

@@ -939,3 +939,41 @@ def test_batch_predictor_in_a_gpu_actor_matches_the_driver(cuda, tmp_path):
         got["logprob"], np.concatenate([w["logprob"] for w in want]),
         rtol=0, atol=1e-4)
     assert got["flash_fwd"][-1] == cfg.num_layers * 3
+
+
+def test_gpu_replica_serves_the_drivers_tokens(cuda):
+    """LLMDeployment as a GPU replica of ray_tpu_torch.serve (its default
+    device, the card) draws phase 4's small model from the same seed as
+    the driver and gives the driver's engine's greedy tokens through
+    handle.remote and the handle's streaming call."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.serve.llm import LLMDeployment, LLMEngine
+
+    cfg = _chip_smoke().small_f32_config()
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (9, 140)]
+    eng = LLMEngine(cfg, params, device=cuda, max_batch=2, max_len=256)
+    try:
+        want = [eng.generate(p, 8, timeout=300) for p in prompts]
+    finally:
+        eng.shutdown()
+    del params
+    rt.init(num_cpus=2)
+    try:
+        h = serve.run(serve.deployment(LLMDeployment).options(
+            name="llm", ray_actor_options={"num_gpus": 1,
+                                           "max_concurrency": 4}).bind(
+            cfg, seed=0, max_batch=2, max_len=256))
+        reqs = [{"prompt": p, "max_new_tokens": 8} for p in prompts]
+        got = [f.result(timeout=300)["tokens"]
+               for f in [h.remote(r) for r in reqs]]
+        streamed = [[i["token"] for i in h.options(method="stream").stream(r)]
+                    for r in reqs]
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    assert got == streamed == want

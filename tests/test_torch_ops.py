@@ -239,8 +239,13 @@ def fresh_import(tmp_path_factory):
         "import ray_tpu_torch.core, ray_tpu_torch.core.worker_main\n"
         "import ray_tpu_torch.train.trainer, ray_tpu_torch.train.torch\n"
         "import ray_tpu_torch.util.events\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.api\n"
+        "from ray_tpu_torch.serve import controller, handle, http_proxy\n"
+        "from ray_tpu_torch.serve import replica, _telemetry\n"
+        "from ray_tpu_torch.util import backoff, overload\n"
+        "import ray_tpu_torch.core.streaming\n"
         "FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ray_tpu', "
-        "'cloudpickle')\n"
+        "'cloudpickle', 'grpc')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in FOREIGN]\n"
         "print('foreign', bad)\n"
         "print('sample', device_metrics.sample(), torch.cuda.is_initialized())\n"
@@ -266,6 +271,7 @@ def fresh_import(tmp_path_factory):
         "def roots():\n"
         "    import ray_tpu_torch.core\n"
         "    import ray_tpu_torch.train.trainer  # what a train rank loads\n"
+        "    import ray_tpu_torch.serve.replica  # what a replica loads\n"
         "    return sorted({m.split('.')[0] for m in sys.modules}\n"
         "                  | {'ray_tpu_torch.train'} & set(sys.modules))\n")
     code = f"PROBE_DIR = {str(probe)!r}\n" + code
@@ -279,9 +285,10 @@ def fresh_import(tmp_path_factory):
 
 
 def test_import_leaves_jax_and_ray_tpu_out(fresh_import):
-    """Neither the driver, after importing every port module, nor a worker
-    process of the port's runtime, after a task that loads the runtime
-    and the trainer, holds JAX, the JAX package or cloudpickle."""
+    """Neither the driver, after importing every port module (serve's
+    included), nor a worker process of the port's runtime, after a task
+    that loads the runtime, the trainer and a serve replica's module,
+    holds JAX, the JAX package, cloudpickle or grpc."""
     assert "foreign []" in fresh_import
     assert "worker [] True" in fresh_import
 

@@ -180,9 +180,11 @@ def test_port_metrics_pass_the_metric_name_lint():
                 if k.startswith("ray_tpu_")}
     assert mod.validate(declared, {}) == []
     # The same names, kinds, help texts as the JAX package's series. The
-    # trainer's series are declared when its telemetry module loads, in
-    # each package: load JAX's, whatever this worker imported before.
+    # trainer's and serve's series are declared when their telemetry
+    # modules load, in each package: load JAX's, whatever this worker
+    # imported before.
     importlib.import_module("ray_tpu.train._telemetry")
+    importlib.import_module("ray_tpu.serve._telemetry")
     jax_declared = jm.declared_metrics()
     for name, meta in declared.items():
         assert jax_declared[name] == meta, name
