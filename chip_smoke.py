@@ -189,6 +189,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (phase 5's tokens again, the recovery seconds); serve.shutdown() ends
      the worker, closes the proxy's port and gives the card's memory back
      to within 1 GB;
+  17. RLlib's online loops on the port's runtime (init(num_cpus=4)), every
+     learner on the card in the driver, every runner a CPU actor that
+     imports its env as chip_smoke.<name>: (a) PPOConfig().environment(
+     CartPole)...build() with phase 12b's config (two runners of 256
+     steps) learns to tests/test_rllib.py's criteria, its sampled actions
+     bitwise equal to phase 12b's in-driver runners' in iteration 1 (and
+     counted for how long after), each iteration's sampling ms through the
+     actors beside 12b's in the driver; (b) LearnerGroup(remote=True,
+     ray_remote_args={"num_gpus": 1}) in a GPU worker from (a)'s final
+     weights on its last batch: stats equal to a learner in the driver
+     (else within 1e-6), the median of 20 updates each way; (c) DD-PPO
+     (its two workers' weights in lockstep within 1e-6) and A3C (its
+     parameter server on the card) learn the sign task to the JAX tests'
+     criteria; (d) A2C, PG, IMPALA, DQN, DDPG, TD3, SAC, R2D2, recurrent
+     PPO, QMIX, MADDPG, SlateQ and AlphaZero built at once on their JAX
+     tests' envs, one train() each: the JAX loop's result keys, finite,
+     updated; build and runner-start seconds and train() ms; (e) no runner
+     worker outlives its stop(), none outlives shutdown(), and no kernel
+     launches in the phase;
   6. one JSON line listing each kernel, then the result line
      {"ok": true, "device": {...}} as the last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -2667,13 +2686,30 @@ def phase_breakdown(cfg, params, card: str):
 
 # ------------------------------------------------ RLlib's learners (12)
 
+class Box:
+    """A gymnasium-style Box space: ``low``, ``high`` and ``shape``."""
+
+    def __init__(self, low, high, shape):
+        self.low = np.broadcast_to(np.float32(low), shape).copy()
+        self.high = np.broadcast_to(np.float32(high), shape).copy()
+        self.shape = shape
+
+
+class Discrete:
+    """A gymnasium-style Discrete space of ``n`` actions."""
+
+    def __init__(self, n):
+        self.n = n
+        self.shape = ()
+
+
 class CartPole:
     """CartPole-v1 in numpy (the card's machine has no gymnasium):
     gymnasium's classic_control/cartpole.py equations (Euler steps of
     0.02 s, force 10, pole half-length 0.5, failure at 12 degrees or
     2.4), its reset draw (uniform in +-0.05 from a PCG64 generator that
-    ``reset(seed=)`` seeds) and the TimeLimit wrapper's truncation at 500
-    steps."""
+    ``reset(seed=)`` seeds), its spaces and the TimeLimit wrapper's
+    truncation at 500 steps."""
 
     obs_dim, num_actions = 4, 2
     gravity, masscart, masspole, length = 9.8, 1.0, 0.1, 0.5
@@ -2682,6 +2718,11 @@ class CartPole:
     force_mag, tau, max_steps = 10.0, 0.02, 500
     theta_threshold = 12 * 2 * np.pi / 360
     x_threshold = 2.4
+    _high = np.array([x_threshold * 2, np.finfo(np.float32).max,
+                      theta_threshold * 2, np.finfo(np.float32).max],
+                     dtype=np.float32)
+    observation_space = Box(-_high, _high, (4,))
+    action_space = Discrete(2)
 
     def __init__(self):
         self.np_random = None
@@ -2902,6 +2943,9 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+RL_PPO_12B = {}  # phase 12b's sampled actions and sampling ms, by iteration
+
+
 def phase_rllib_ppo(card: str):
     """Phase 12b: PPO learns CartPole-v1 with the learner on the card, fed
     by two of the port's EnvRunners (seeds 0 and 1) with
@@ -2933,6 +2977,7 @@ def phase_rllib_ppo(card: str):
     assert learner.device.type == "cuda", learner.device
     rng = np.random.RandomState(c.seed)
     first, best, rewards, sample_ms, learn_ms = None, 0.0, [], [], []
+    actions = []
     for _ in range(25):
         t0 = time.perf_counter()
         batches = []
@@ -2940,6 +2985,7 @@ def phase_rllib_ppo(card: str):
             batches.extend(r.sample() for r in runners)
         batch = SampleBatch.concat(batches)
         t1 = time.perf_counter()
+        actions.append(batch[ACTIONS].copy())
         learner.update_epochs(batch, epochs=c.num_epochs,
                               minibatch_size=c.minibatch_size, rng=rng)
         weights = learner.get_weights()
@@ -2966,6 +3012,7 @@ def phase_rllib_ppo(card: str):
         f"{np.median(learn_ms):.1f} ms (medians); on {card}")
     assert first is not None and best > 60 and best > first + 30, (
         first, best, rewards)
+    RL_PPO_12B.update(actions=actions, sample_ms=sample_ms)
 
     mb = {"obs": batch[OBS][:128],
           "actions": np.asarray(batch[ACTIONS][:128], np.int32),
@@ -4593,6 +4640,586 @@ def phase_serve_deploy(card: str):
     return launches
 
 
+# ---------------------------------------- RLlib's online loops (17)
+# The JAX tests' toy envs (tests/test_rllib_families*.py), at module level
+# so that runner actors import them as chip_smoke.<name>.
+
+class Sign:
+    """Discrete toy: obs=[signal in {-1,+1}]; the action must match the
+    sign (+1 reward, else -1); 30-step episodes."""
+
+    def __init__(self):
+        self.observation_space = Box(-1.0, 1.0, (1,))
+        self.action_space = Discrete(2)
+        self._rng = np.random.RandomState(0)
+        self._t = 0
+
+    def _obs(self):
+        self._sig = float(self._rng.choice([-1.0, 1.0]))
+        return np.asarray([self._sig], "float32")
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.RandomState(seed)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        want = 1 if self._sig > 0 else 0
+        r = 1.0 if int(action) == want else -1.0
+        self._t += 1
+        return self._obs(), r, False, self._t >= 30, {}
+
+
+class GoToZero:
+    """1-D continuous toy: reward -|x + a|; the optimum is a = -x."""
+
+    def __init__(self):
+        self.observation_space = Box(-1.0, 1.0, (1,))
+        self.action_space = Box(-1.0, 1.0, (1,))
+        self._rng = np.random.RandomState(0)
+        self._t = 0
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.RandomState(seed)
+        self._t = 0
+        self._x = self._rng.uniform(-1, 1, (1,)).astype("float32")
+        return self._x, {}
+
+    def step(self, action):
+        r = -float(abs(self._x[0] + float(action[0])))
+        self._t += 1
+        self._x = self._rng.uniform(-1, 1, (1,)).astype("float32")
+        return self._x, r, False, self._t >= 50, {}
+
+
+class Memory:
+    """POMDP: the cue is visible only at t=0; every later step rewards the
+    action matching the remembered cue; 8-step episodes."""
+
+    def __init__(self):
+        self.observation_space = Box(-1.0, 1.0, (1,))
+        self.action_space = Discrete(2)
+        self._rng = np.random.RandomState(0)
+        self._t = 0
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.RandomState(seed)
+        self._t = 0
+        self._cue = float(self._rng.choice([-1.0, 1.0]))
+        return np.asarray([self._cue], "float32"), {}
+
+    def step(self, action):
+        want = 1 if self._cue > 0 else 0
+        r = 1.0 if int(action) == want else -1.0
+        self._t += 1
+        return np.asarray([0.0], "float32"), r, False, self._t >= 8, {}
+
+
+class Coop:
+    """2-agent cooperative sign task with a joint bonus (QMIX's)."""
+
+    def __init__(self):
+        self._rng = np.random.RandomState(0)
+        self._t = 0
+
+    def _obs(self):
+        self._sig = self._rng.choice([-1.0, 1.0], size=2)
+        return {f"a{i}": np.asarray([self._sig[i]], "float32")
+                for i in range(2)}
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.RandomState(seed)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, actions):
+        correct = [int(actions[f"a{i}"]) == (1 if self._sig[i] > 0 else 0)
+                   for i in range(2)]
+        team = float(sum(correct)) + (1.0 if all(correct) else 0.0)
+        rew = {f"a{i}": team / 2.0 for i in range(2)}
+        self._t += 1
+        done = self._t >= 25
+        return (self._obs(), rew, {"__all__": done}, {"__all__": False}, {})
+
+
+class CoopPush:
+    """2-agent continuous cooperation (MADDPG's): each agent outputs an
+    action close to its own target; the reward is shared."""
+
+    action_low = -np.ones(1, np.float32)
+    action_high = np.ones(1, np.float32)
+
+    def __init__(self):
+        self._rng = np.random.RandomState(0)
+        self._t = 0
+
+    def _obs(self):
+        self._targets = self._rng.uniform(-0.8, 0.8, 2)
+        return {f"a{i}": np.asarray([self._targets[i]], "float32")
+                for i in range(2)}
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.RandomState(seed)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, actions):
+        errs = [abs(float(actions[f"a{i}"][0]) - self._targets[i])
+                for i in range(2)]
+        team = -(errs[0] + errs[1])
+        rew = {f"a{i}": team / 2.0 for i in range(2)}
+        self._t += 1
+        done = self._t >= 25
+        return (self._obs(), rew, {"__all__": done}, {"__all__": False}, {})
+
+
+class RecSys:
+    """Toy recsys (SlateQ's): clicks follow a logit over the slate's
+    alignment with a hidden taste; reward = the clicked item's
+    alignment."""
+
+    num_items = 12
+    slate_size = 3
+
+    def __init__(self):
+        rng = np.random.RandomState(7)
+        self.item_features = rng.randn(self.num_items, 4).astype("float32")
+        self._rng = np.random.RandomState(0)
+        self._t = 0
+
+    def _user(self):
+        taste = self._rng.randn(4)
+        self._taste = (taste / np.linalg.norm(taste)).astype("float32")
+        return self._taste
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.RandomState(seed)
+        self._t = 0
+        return self._user(), {}
+
+    def step(self, slate):
+        aligns = np.asarray([float(self.item_features[i] @ self._taste)
+                             for i in slate])
+        ex = np.exp(aligns - aligns.max())
+        probs = ex / (ex.sum() + np.exp(-aligns.max()))
+        u = self._rng.rand()
+        acc = 0.0
+        clicked, reward = -1, 0.0
+        for j, p in enumerate(probs):
+            acc += p
+            if u < acc:
+                clicked = int(slate[j])
+                reward = float(aligns[j])
+                break
+        self._t += 1
+        return self._user(), reward, False, self._t >= 20, \
+            {"clicked": clicked}
+
+
+def kernel_counts():
+    """Every kernel's launch counter in this process."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    return {**train_launches(), "paged_decode": pa.launches}
+
+
+def new_pids(before):
+    """The runtime's worker pids that are not in ``before``."""
+    from ray_tpu_torch.core.runtime_context import current_runtime
+
+    return sorted(set(current_runtime().worker_pids()) - set(before))
+
+
+def worker_pids():
+    from ray_tpu_torch.core.runtime_context import current_runtime
+
+    return current_runtime().worker_pids()
+
+
+def stop_and_check(algo, pids, what: str):
+    """``algo.stop()``, then none of ``pids`` is alive or held by the
+    runtime a moment later."""
+    algo.stop()
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = alive_pids(pids) + [p for p in pids if p in worker_pids()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    assert not left, (what, left)
+
+
+def ready_s(actors, t0: float) -> float:
+    """Seconds from ``t0`` until every actor answers its ping."""
+    import ray_tpu_torch as rt
+
+    rt.get([a.__rtpu_ping__.remote() for a in actors], timeout=300)
+    return time.perf_counter() - t0
+
+
+def rl_loop_ppo(card: str, device=None):
+    """Phase 17a: PPOConfig().build() on CartPole through two CPU runner
+    actors, the learner on the card in the driver, to
+    tests/test_rllib.py:35-63's criteria; iteration 1's sampled actions
+    bitwise equal to phase 12b's in-driver runners'. Returns the last
+    batch, the final weights and the algorithm's config."""
+    import chip_smoke as cs
+    from ray_tpu_torch.rllib import PPOConfig, SampleBatch
+    from ray_tpu_torch.rllib.sample_batch import ACTIONS
+
+    c = (PPOConfig().environment(cs.CartPole)
+         .env_runners(num_env_runners=2, rollout_fragment_length=256)
+         .training(lr=3e-3, train_batch_size=512, minibatch_size=128,
+                   num_epochs=6)
+         .debugging(seed=0))
+    before = worker_pids()
+    t0 = time.perf_counter()
+    algo = c.build(device=device)
+    build_s = time.perf_counter() - t0
+    pids = new_pids(before)
+    start_s = ready_s(algo.runners, t0)
+    assert algo.learner.device.type == (device or "cuda"), algo.device
+    assert len(pids) == 2, pids
+    sample_ms, learn_ms, actions, last = [], [], [], {}
+    sample_all, update_epochs = algo.sample_all, algo.learner.update_epochs
+
+    def timed_sample():
+        t = time.perf_counter()
+        out = sample_all()
+        sample_ms.append((time.perf_counter() - t) * 1e3)
+        last["batch"] = SampleBatch.concat(out)
+        actions.append(last["batch"][ACTIONS])
+        return out
+
+    def timed_update(*args, **kwargs):
+        t = time.perf_counter()
+        out = update_epochs(*args, **kwargs)
+        learn_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    algo.sample_all, algo.learner.update_epochs = timed_sample, timed_update
+    first, best, rewards = None, 0.0, []
+    try:
+        for _ in range(25):
+            result = algo.train()
+            if first is None and result["episodes_total"] > 0:
+                first = result["episode_reward_mean"]
+            best = max(best, result["episode_reward_mean"])
+            rewards.append(round(result["episode_reward_mean"], 1))
+            if best > 80:
+                break
+        weights = algo.get_weights()
+    finally:
+        stop_and_check(algo, pids, "PPO")
+    ref = RL_PPO_12B["actions"]
+    same = 0
+    while same < min(len(ref), len(actions)) and np.array_equal(
+            ref[same], actions[same]):
+        same += 1
+    log(f"[rl-loops] PPOConfig().environment(CartPole)...build(): build() "
+        f"{build_s:.2f} s (probe, 2 runner actors submitted, learner on "
+        f"{algo.learner.device}), runners answering {start_s:.2f} s after "
+        f"build() began; mean episode reward by iteration {rewards}; first "
+        f"{first}, best {best:.1f} (need > 60 and > first + 30); sampled "
+        f"actions bitwise equal to phase 12b's in the first {same} of "
+        f"{min(len(ref), len(actions))} iterations both ran (need >= 1); "
+        f"on {card}")
+    log(f"[rl-loops] PPO sampling ms by iteration through the runner "
+        f"actors {[round(x, 1) for x in sample_ms]} (median "
+        f"{np.median(sample_ms):.1f}) against phase 12b's in the driver "
+        f"{[round(x, 1) for x in RL_PPO_12B['sample_ms']]} (median "
+        f"{np.median(RL_PPO_12B['sample_ms']):.1f}); update_epochs ms "
+        f"median {np.median(learn_ms):.1f}; on {card}")
+    assert first is not None and best > 60 and best > first + 30, (
+        first, best, rewards)
+    assert same >= 1, "iteration 1's actions differ from phase 12b's"
+    return last["batch"], weights, c
+
+
+def rl_loop_remote_learner(card: str, batch, weights, c, device=None):
+    """Phase 17b: LearnerGroup(remote=True, {"num_gpus": 1}) in a GPU
+    worker against a learner in the driver on the card, from 17a's final
+    weights on its last batch: the same stats, then 20 updates each."""
+    import functools
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import LearnerGroup, MLPPolicy, PPOLearner
+    from ray_tpu_torch.rllib.sample_batch import (
+        ACTIONS, ADVANTAGES, LOGPS, OBS, RETURNS)
+
+    policy = MLPPolicy(CartPole.obs_dim, CartPole.num_actions,
+                       c.hidden_size, c.seed)
+    policy.set_weights(weights)
+    factory = functools.partial(PPOLearner, policy, c.lr, c.clip_param,
+                                c.vf_loss_coeff, c.entropy_coeff,
+                                device=device)
+    mb = {"obs": batch[OBS],
+          "actions": np.asarray(batch[ACTIONS], np.int32),
+          "old_logp": batch[LOGPS], "adv": batch[ADVANTAGES],
+          "returns": batch[RETURNS]}
+    before = worker_pids()
+    t0 = time.perf_counter()
+    group = LearnerGroup(factory, remote=True, ray_remote_args=(
+        {"num_gpus": 1} if device is None else {}))
+    try:
+        pids = new_pids(before)
+        remote = group.update(mb)
+        start_s = time.perf_counter() - t0
+        local = factory()
+        assert local.device.type == (device or "cuda"), local.device
+        want = local.update(mb)
+        worst = max(abs(remote[k] - want[k]) for k in want)
+        assert remote.keys() == want.keys() and worst <= 1e-6, (
+            remote, want)
+        assert rt.get(group.update_async(mb)).keys() == want.keys()
+
+        def timed(fn, n=20):
+            times = []
+            for _ in range(n):
+                t = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(times))
+
+        remote_ms = timed(lambda: group.update(mb))
+        local_ms = timed(lambda: local.update(mb))
+    finally:
+        group.shutdown()
+    time.sleep(0.2)
+    left = alive_pids(pids)
+    agree = "equal to" if worst == 0 else f"within {worst:.1e} of"
+    log(f"[rl-loops] LearnerGroup(remote=True, num_gpus=1): first update "
+        f"{start_s:.2f} s after the group was made (the GPU worker's "
+        f"start included); stats on 17a's last batch of {len(batch[OBS])} "
+        f"rows from its final weights {agree} "
+        f"the driver's learner on the card ({sorted(want)}); median of 20 "
+        f"updates (stats read back) {remote_ms:.2f} ms through the actor "
+        f"against {local_ms:.2f} ms in the driver; shutdown() left "
+        f"{left} of the worker {pids} alive; on {card}")
+    assert len(pids) == 1 and not left, (pids, left)
+
+
+def rl_learn_sign(card: str, name: str, device=None):
+    """Phase 17c: DD-PPO or A3C on the sign task with the JAX tests'
+    settings (2 workers, fragments of 120, lr 5e-3), to their criteria."""
+    import chip_smoke as cs
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.train.optim import leaves
+
+    cfg = (getattr(rllib, name + "Config")().environment(cs.Sign)
+           .env_runners(num_env_runners=2, rollout_fragment_length=120)
+           .training(lr=5e-3).debugging(seed=0))
+    if name == "DDPPO":
+        cfg.sgd_rounds_per_iteration, iters = 4, 15
+    else:
+        cfg.grads_per_iteration, iters = 6, 25
+    before = worker_pids()
+    t0 = time.perf_counter()
+    algo = cfg.build(device=device)
+    build_s = time.perf_counter() - t0
+    pids = new_pids(before)
+    start_s = ready_s(algo.workers, t0)
+    best, rewards, train_ms = -31.0, [], []
+    try:
+        for _ in range(iters):
+            t = time.perf_counter()
+            result = algo.train()
+            train_ms.append((time.perf_counter() - t) * 1e3)
+            rewards.append(round(result["episode_reward_mean"], 1))
+            if result["episodes_total"] > 0:
+                best = max(best, result["episode_reward_mean"])
+            if best > 24:
+                break
+        if name == "DDPPO":
+            ws = rt.get([w.get_weights.remote() for w in algo.workers])
+            apart = max(float(np.abs(a - b).max())
+                        for a, b in zip(leaves(ws[0]), leaves(ws[1])))
+            extra = (f"the two workers' weights apart by at most {apart:.1e}"
+                     f" (need <= 1e-6)")
+        else:
+            assert algo.device.type == (device or "cuda"), algo.device
+            extra = (f"parameter server on {algo.device}, "
+                     f"{result['num_grads_applied']} gradients applied in "
+                     f"the last iteration")
+    finally:
+        stop_and_check(algo, pids, name)
+    log(f"[rl-loops] {name} on the sign task (2 workers x 120 steps, lr "
+        f"5e-3): build() {build_s:.2f} s, workers answering {start_s:.2f} s;"
+        f" mean episode reward by iteration {rewards}, best {best:.1f} "
+        f"(need > 24 within {iters}); {extra}; train() median "
+        f"{np.median(train_ms):.1f} ms; on {card}")
+    assert best > 24, (name, best, rewards)
+    if name == "DDPPO":
+        assert apart <= 1e-6, apart
+    else:
+        assert result["num_grads_applied"] > 0, result
+
+
+def rl_loop_configs():
+    """The other online loops, each on its JAX test's env and settings
+    (tests/test_rllib.py, tests/test_rllib_families*.py), the warm-up cut
+    to one iteration's steps so that one train() updates."""
+    import chip_smoke as cs
+    from ray_tpu_torch import rllib as rl
+
+    def two(cfg, env, fragment, **training):
+        if env is not None:
+            cfg.environment(env)
+        return (cfg.env_runners(num_env_runners=2,
+                                rollout_fragment_length=fragment)
+                .training(**training).debugging(seed=0))
+
+    box = dict(lr=3e-3, minibatch_size=128,
+               num_steps_sampled_before_learning_starts=200)
+    az = two(rl.AlphaZeroConfig(), None, 200, lr=3e-3, minibatch_size=128)
+    az.num_simulations, az.games_per_iteration = 32, 10
+    az.train_batches_per_iteration = 12
+    return {
+        "A2C": two(rl.A2CConfig(), cs.Sign, 120, lr=5e-3,
+                   train_batch_size=240, minibatch_size=240),
+        "PG": two(rl.PGConfig(), cs.Sign, 120, lr=5e-3,
+                  train_batch_size=240, minibatch_size=240),
+        "IMPALA": two(rl.IMPALAConfig(), cs.CartPole, 256, lr=2e-3,
+                      entropy_coeff=0.02),
+        "DQN": two(rl.DQNConfig(), cs.CartPole, 128, lr=1e-3,
+                   minibatch_size=64, buffer_size=20_000,
+                   num_steps_sampled_before_learning_starts=256,
+                   target_network_update_freq=300,
+                   num_updates_per_iteration=48, epsilon_timesteps=4_000,
+                   prioritized_replay=True),
+        "DDPG": two(rl.DDPGConfig(), cs.GoToZero, 100,
+                    num_updates_per_iteration=60, exploration_noise=0.2,
+                    **box),
+        "TD3": two(rl.TD3Config(), cs.GoToZero, 100,
+                   num_updates_per_iteration=60, exploration_noise=0.2,
+                   **box),
+        "SAC": two(rl.SACConfig(), cs.GoToZero, 100,
+                   num_updates_per_iteration=40, **box),
+        "R2D2": two(rl.R2D2Config(), cs.Memory, 96, lr=3e-3,
+                    num_updates_per_iteration=24,
+                    num_steps_sampled_before_learning_starts=192,
+                    epsilon_timesteps=2500, seq_len=8,
+                    target_network_update_freq=400),
+        "RecurrentPPO": two(rl.RecurrentPPOConfig(), cs.Memory, 128,
+                            lr=3e-3, minibatch_size=256, num_epochs=4,
+                            seq_len=8),
+        "QMIX": two(rl.QMIXConfig(), cs.Coop, 100,
+                    num_updates_per_iteration=32, epsilon_timesteps=3000,
+                    num_actions=2, **box),
+        "MADDPG": two(rl.MADDPGConfig(), cs.CoopPush, 100,
+                      num_updates_per_iteration=48, act_dim=1,
+                      exploration_noise=0.3, **box),
+        "SlateQ": two(rl.SlateQConfig(), cs.RecSys, 100,
+                      num_updates_per_iteration=32, epsilon_timesteps=2000,
+                      **box),
+        "AlphaZero": az,
+    }
+
+
+# Each loop's train() keys, as the JAX package's loops return them (the
+# CPU tests hold the port's against them, tests/test_torch_rllib_loops*.py).
+_EP = ("episode_reward_mean", "episodes_total", "training_iteration")
+_REPLAY = _EP + ("num_env_steps_sampled", "num_learner_updates")
+RL_LOOP_KEYS = {
+    "A2C": _EP + ("num_env_steps_sampled", "policy_loss", "vf_loss",
+                  "entropy", "total_loss"),
+    "PG": _EP + ("num_env_steps_sampled", "policy_loss", "total_loss"),
+    "IMPALA": _EP + ("num_batches_consumed", "pg_loss", "vf_loss",
+                     "entropy", "total_loss"),
+    "DQN": _REPLAY + ("epsilon", "buffer_size", "loss"),
+    "DDPG": _REPLAY + ("buffer_size", "critic_loss", "q_mean",
+                       "total_loss", "actor_loss"),
+    "TD3": _REPLAY + ("buffer_size", "critic_loss", "q1_mean",
+                      "total_loss", "actor_loss"),
+    "SAC": _REPLAY + ("buffer_size", "loss", "critic_loss", "actor_loss",
+                      "alpha"),
+    "R2D2": _REPLAY + ("epsilon", "loss"),
+    "RecurrentPPO": _EP + ("num_env_steps_sampled", "loss"),
+    "QMIX": _REPLAY + ("epsilon", "td_loss", "q_tot_mean", "total_loss"),
+    "MADDPG": _REPLAY + ("critic_loss_0", "critic_loss_1", "actor_loss",
+                         "critic_loss"),
+    "SlateQ": _REPLAY + ("epsilon", "loss"),
+    "AlphaZero": ("training_iteration", "num_positions", "new_positions",
+                  "total_loss", "policy_loss", "value_loss"),
+}
+
+
+def rl_every_loop(card: str, device=None):
+    """Phase 17d: every other online loop built at once (their runner
+    workers start side by side), then one train() each with the learner
+    on the card: the JAX loop's result keys, finite numbers, at least one
+    update; each stop() ends its runners."""
+    configs = rl_loop_configs()
+    built = {}
+    for name, cfg in configs.items():
+        before = worker_pids()
+        t0 = time.perf_counter()
+        algo = cfg.build(device=device)
+        built[name] = (algo, time.perf_counter() - t0, t0, new_pids(before))
+    rows = []
+    try:
+        for name, (algo, build_s, t0, pids) in built.items():
+            actors = getattr(algo, "runners", None) or algo.actors
+            start_s = ready_s(actors, t0)
+            assert algo.learner.device.type == (device or "cuda"), name
+            t = time.perf_counter()
+            result = algo.train()
+            train_ms = (time.perf_counter() - t) * 1e3
+            assert sorted(result) == sorted(RL_LOOP_KEYS[name]), (
+                name, sorted(result))
+            bad = {k: v for k, v in result.items()
+                   if not np.isfinite(v)}
+            assert not bad, (name, bad)
+            updates = result.get("num_learner_updates",
+                                 result.get("num_batches_consumed", 1))
+            assert updates > 0 and len(pids) == 2, (name, result, pids)
+            rows.append(f"{name} {build_s:.2f}/{start_s:.2f}/"
+                        f"{train_ms:.0f}")
+    finally:
+        for name, (algo, _, _, pids) in built.items():
+            stop_and_check(algo, pids, name)
+    log(f"[rl-loops] one train() of each other loop, learner on the card, "
+        f"2 runner actors each, all {len(built)} built first so their "
+        f"workers start side by side: build() s / runners answering s "
+        f"(from that build's start) / train() ms: " + ", ".join(rows)
+        + f"; every result has the JAX loop's keys, finite, and updated; "
+        f"after each stop() none of its runner workers is alive; on {card}")
+
+
+def phase_rllib_loops(card: str, device=None):
+    """Phase 17: RLlib's online loops on the port's runtime."""
+    import ray_tpu_torch as rt
+
+    kernels = kernel_counts()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    try:
+        batch, weights, c = rl_loop_ppo(card, device)
+        rl_loop_remote_learner(card, batch, weights, c, device)
+        for name in ("DDPPO", "A3C"):
+            rl_learn_sign(card, name, device)
+        rl_every_loop(card, device)
+        pids = worker_pids()
+    finally:
+        rt.shutdown()
+    time.sleep(0.2)
+    left = alive_pids(pids)
+    after = kernel_counts()
+    log(f"[rl-loops] shutdown(): {len(pids)} worker processes, alive "
+        f"after: {left}; kernel launch counters before and after the "
+        f"phase {kernels} -> {after}; phase 17 took "
+        f"{time.perf_counter() - t0:.1f} s; on {card}")
+    assert not left, left
+    assert after == kernels, (kernels, after)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4634,6 +5261,8 @@ def main() -> int:
     train["trainer_data"] = phase_trainer_data(card, train["trainer"])
     torch.cuda.empty_cache()
     serve["serve_deploy"] = phase_serve_deploy(card)
+    torch.cuda.empty_cache()
+    phase_rllib_loops(card)
     src = "ray_tpu_torch/ops/csrc/"
     fa_src = "ray_tpu/ops/flash_attention.py:"
     attn = "H=32 Hkv=8 D=128 causal bf16"

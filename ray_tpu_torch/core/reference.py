@@ -73,6 +73,10 @@ class ObjectRef:
         if rt is not None:
             rt.add_ref(object_id)
 
+    def id(self) -> str:
+        """The object's id: hashable, and equal for refs to one object."""
+        return self._id
+
     def hex(self) -> str:
         return self._id
 

@@ -312,7 +312,12 @@ class DriverRuntime:
         self._fn_cache: Dict[int, Tuple[Any, bytes]] = {}
         self._closing = False
         self._authkey = secrets.token_bytes(16)
-        self._listener = Listener(("127.0.0.1", 0), authkey=self._authkey)
+        # A backlog for every worker the node may start at once: with the
+        # default of 1, a burst of starting workers overflows it and the
+        # kernel drops their connects, which retry after 1, 3, 7, ... s
+        # (one of 26 at once had not connected after 120 s).
+        self._listener = Listener(("127.0.0.1", 0), authkey=self._authkey,
+                                  backlog=MAX_WORKERS)
         self._address = "%s:%d" % self._listener.address
         self._pythonpath = worker_pythonpath()
         self._threads = [

@@ -13,8 +13,8 @@ configurations.
 world when there is one, else over a world of ``n`` processes that it
 starts and stops; :func:`dryrun_rank` is one rank's part. The
 JAX dry run's fourth part, ``_dryrun_framework`` (the same dense step in a
-``JaxTrainer`` gang), waits for the trainer gang's port (ROADMAP Queue 1
-item 8).
+``JaxTrainer`` gang), is not here yet: the port's ``TorchTrainer`` gang
+exists, and the part waits in ROADMAP Queue 1 item 3.
 
 It runs on the cards unless the caller passes ``device="cpu"``: a world
 of NCCL processes, one a card, or of gloo processes on the CPU.

@@ -1,24 +1,23 @@
-"""A2C's learner: synchronous advantage actor-critic (counterpart of
-``ray_tpu/rllib/a2c.py``'s ``A2CConfig``, ``A2CLearner`` and the batch
-layout of ``A2C.update_minibatch``).
+"""A2C: synchronous advantage actor-critic (counterpart of
+``ray_tpu/rllib/a2c.py``).
 
 Ref analogue: rllib/algorithms/a2c. One gradient pass per sampled batch —
 vanilla policy gradient on GAE advantages + value regression + entropy
-bonus, no surrogate clipping and no epoch reuse. The algorithm's loop
-waits for the actor runtime; ``update_minibatch`` is its per-minibatch
-call, kept on the learner.
+bonus, no surrogate clipping and no epoch reuse. Shares the GAE EnvRunner
+plane with PPO. The batch layout of a minibatch is the learner's
+``update_minibatch`` (PG's learner has its own).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike
-from .algorithm import AlgorithmConfig
-from .core import ActorCriticModule, Learner
+from .algorithm import Algorithm, AlgorithmConfig
+from .core import ActorCriticModule, Learner, to_floats
 from .ppo import action_logp, entropy, normalized
 from .sample_batch import ACTIONS, ADVANTAGES, OBS, RETURNS, SampleBatch
 
@@ -29,6 +28,9 @@ class A2CConfig(AlgorithmConfig):
         self.lr = 1e-3
         self.vf_loss_coeff: float = 0.5
         self.entropy_coeff: float = 0.01
+
+    def build(self, device: DeviceLike = None) -> "A2C":
+        return A2C(self.copy(), device)
 
 
 class A2CLearner(Learner):
@@ -62,3 +64,31 @@ class A2CLearner(Learner):
             "adv": mb[ADVANTAGES],
             "returns": mb[RETURNS],
         })
+
+
+class A2C(Algorithm):
+    def _build_learner(self, policy):
+        c = self.config
+        return A2CLearner(policy, c.lr, c.vf_loss_coeff, c.entropy_coeff,
+                          device=self.device)
+
+    def training_step(self) -> Dict[str, Any]:
+        c = self.config
+        batches: List[SampleBatch] = []
+        while sum(b.count for b in batches) < c.train_batch_size:
+            batches.extend(self.sample_all())
+        batch = SampleBatch.concat(batches)
+
+        # ONE synchronous gradient pass over the fresh batch (minibatched
+        # for memory, still a single epoch — on-policy).
+        stats: Dict[str, Any] = {}
+        for mb in batch.minibatches(min(c.minibatch_size, batch.count)):
+            stats = self.learner.update_minibatch(mb)
+        stats = to_floats(stats)
+
+        self.broadcast(self.learner.get_weights())
+        return {
+            **self.episode_stats(),
+            "num_env_steps_sampled": batch.count,
+            **stats,
+        }

@@ -1,34 +1,32 @@
-"""AlphaZero's net: MCTS self-play with a learned policy/value network
-(counterpart of ``ray_tpu/rllib/alpha_zero.py``'s ``TicTacToe``,
-``_forward``, ``MCTS``, ``_SelfPlayActor`` and ``AlphaZeroConfig``, and of
-the update ``AlphaZero._build_learner`` builds).
+"""AlphaZero: MCTS self-play with a learned policy/value network
+(counterpart of ``ray_tpu/rllib/alpha_zero.py``).
 
 Ref analogue: rllib/algorithms/alpha_zero (Silver 2017). Self-play actors
 run PUCT tree search at every move (priors and leaf values from the
 current network, Dirichlet noise at the root) and emit (state, visit-count
 policy, final outcome) triples; the learner fits the network to the
-search policies (cross-entropy) and the outcomes (value MSE). The game,
-the search and the self-play actor are the JAX package's numpy, copied.
-The JAX package builds its update inside ``AlphaZero``, whose constructor
-starts remote self-play actors; here the update is ``AlphaZeroLearner``,
-on the card, and ``AlphaZeroConfig.build()`` raises until the port has the
-actor runtime. A caller drives ``_SelfPlayActor`` and the learner in its
-own process.
+search policies (cross-entropy) and the outcomes (value MSE); fresh
+weights broadcast back. The game, the search and the self-play actor are
+the JAX package's numpy, copied. The JAX package builds its update inside
+``AlphaZero``; here it is ``AlphaZeroLearner``, on the card, which
+``AlphaZero`` drives. The game class travels to the actors by reference:
+it must be importable at module level.
 """
 
 from __future__ import annotations
 
 import math
 import pickle
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
+from ..core.reference import dumps_with_refs
 from ..train.optim import AdamW
-from .algorithm import AlgorithmConfig
+from .algorithm import AlgorithmConfig, stop_actors
 from .core import (
     RLModule,
     to_device,
@@ -223,6 +221,9 @@ class AlphaZeroConfig(AlgorithmConfig):
         self.train_batches_per_iteration: int = 16
         self.hidden_size = 64
 
+    def build(self, device: DeviceLike = None) -> "AlphaZero":
+        return AlphaZero(self.copy(), device)
+
 
 def init_weights(config: AlphaZeroConfig):
     """The network's numpy weights, drawn from the config's seed as
@@ -281,3 +282,90 @@ class AlphaZeroLearner:
 
     def set_weights(self, weights):
         self._params = tree_to_device(weights, self.device)
+
+
+class AlphaZero:
+    def __init__(self, config: AlphaZeroConfig, device: DeviceLike = None):
+        import ray_tpu_torch as rt
+
+        self.config = config
+        self.iteration = 0
+        c = config
+        game = c.game()
+        self._obs_dim = game.OBS_DIM
+        self._num_actions = game.NUM_ACTIONS
+        self.weights = init_weights(c)
+        # By reference; a game class a worker could not import raises
+        # TypeError naming it here.
+        blob, _ = dumps_with_refs(c.game)
+        actor_cls = rt.remote(_SelfPlayActor)
+        self.actors = [
+            actor_cls.remote(blob, c.num_simulations, c.seed + i)
+            for i in range(c.num_env_runners)
+        ]
+        self._replay: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] \
+            = []
+        self.learner = AlphaZeroLearner(c, device)
+        self.device = self.learner.device
+        self._rng = np.random.RandomState(c.seed + 17)
+
+    def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch as rt
+
+        self.iteration += 1
+        c = self.config
+        rt.get([a.set_weights.remote(self.weights) for a in self.actors])
+        per = max(1, c.games_per_iteration // len(self.actors))
+        results = rt.get([a.play_games.remote(per) for a in self.actors])
+        new_positions = 0
+        for s, pi, z in results:
+            self._replay.append((s, pi, z))
+            new_positions += len(s)
+        # Bound the replay window by positions.
+        while sum(len(r[0]) for r in self._replay) > c.replay_window \
+                and len(self._replay) > 1:
+            self._replay.pop(0)
+
+        S = np.concatenate([r[0] for r in self._replay])
+        PI = np.concatenate([r[1] for r in self._replay])
+        Z = np.concatenate([r[2] for r in self._replay])
+        stats = {"total_loss": float("nan"), "policy_loss": float("nan"),
+                 "value_loss": float("nan")}
+        for _ in range(c.train_batches_per_iteration):
+            idx = self._rng.randint(0, len(S),
+                                    min(c.minibatch_size, len(S)))
+            stats = self.learner.update(S[idx], PI[idx], Z[idx])
+        self.weights = self.learner.get_weights()
+        return {
+            "training_iteration": self.iteration,
+            "num_positions": len(S),
+            "new_positions": new_positions,
+            "total_loss": stats["total_loss"],
+            "policy_loss": stats["policy_loss"],
+            "value_loss": stats["value_loss"],
+        }
+
+    def get_weights(self):
+        return self.weights
+
+    def compute_action(self, state: np.ndarray, *,
+                       use_mcts: bool = True,
+                       num_simulations: Optional[int] = None) -> int:
+        """Greedy play with the current net (optionally MCTS-backed)."""
+        game = self.config.game()
+        if use_mcts:
+            mcts = MCTS(
+                game, self.weights,
+                num_simulations=(num_simulations
+                                 or self.config.num_simulations),
+                rng=self._rng,
+            )
+            return int(np.argmax(mcts.search(state, add_noise=False)))
+        logits, _ = _forward(self.weights, state)
+        legal = game.legal_actions(state)
+        scores = np.full(game.NUM_ACTIONS, -np.inf)
+        scores[legal] = logits[legal]
+        return int(np.argmax(scores))
+
+    def stop(self):
+        stop_actors(self.actors)

@@ -28,7 +28,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..train.optim import AdamW, leaves
-from .algorithm import NO_RUNTIME
+from .algorithm import stop_actors
 
 
 # ------------------------------------------------------------------ trees
@@ -392,32 +392,73 @@ class TwinCriticLearner(Learner):
         }
 
 
-class LearnerGroup:
-    """Run a Learner locally (ref: learner_group.py:66). The remote mode,
-    a learner inside an actor of the actor runtime, is not ported yet:
-    ``remote=True`` raises."""
+class _LearnerActor:
+    """Actor wrapper hosting a Learner replica (LearnerGroup remote
+    mode). The factory arrives by reference: a module-level callable or
+    a ``functools.partial`` of one."""
 
-    def __init__(self, learner_factory: Callable[[], Learner],
-                 *, remote: bool = False,
-                 ray_remote_args: Optional[dict] = None):
-        if remote:
-            raise NotImplementedError(
-                NO_RUNTIME.format("LearnerGroup(remote=True)"))
+    def __init__(self, learner_factory: Callable[[], Learner]):
         self._learner = learner_factory()
 
-    @property
-    def is_remote(self) -> bool:
-        return False
-
-    def update(self, batch) -> Dict[str, float]:
-        return self._learner.update(batch)
-
-    def update_async(self, batch):
-        """Local mode runs inline and returns the stats."""
+    def update(self, batch):
         return self._learner.update(batch)
 
     def get_weights(self):
         return self._learner.get_weights()
 
+    def num_updates(self):
+        return self._learner.num_updates
+
+
+class LearnerGroup:
+    """Run a Learner locally or inside a remote actor (ref:
+    learner_group.py:66 — local vs remote learners; the remote mode is
+    the learner/actor split async algorithms build on). ``update_async``
+    returns a future-like ref in remote mode so sampling continues
+    while the learner steps. ``ray_remote_args={"num_gpus": 1}`` puts the
+    learner in a GPU worker, where a factory that gives no device takes
+    the card. A factory the worker could not import (a lambda, a local or
+    ``__main__`` function) raises ``TypeError`` naming it."""
+
+    def __init__(self, learner_factory: Callable[[], Learner],
+                 *, remote: bool = False,
+                 ray_remote_args: Optional[dict] = None):
+        self._remote = remote
+        if not remote:
+            self._learner = learner_factory()
+            self._actor = None
+        else:
+            import ray_tpu_torch as rt
+
+            cls = rt.remote(**(ray_remote_args or {}))(_LearnerActor)
+            self._actor = cls.remote(learner_factory)
+            self._learner = None
+
+    @property
+    def is_remote(self) -> bool:
+        return self._remote
+
+    def update(self, batch) -> Dict[str, float]:
+        if self._learner is not None:
+            return self._learner.update(batch)
+        import ray_tpu_torch as rt
+
+        return rt.get(self._actor.update.remote(batch), timeout=300)
+
+    def update_async(self, batch):
+        """Remote mode: returns the update's result ref immediately.
+        Local mode: runs inline and returns the stats."""
+        if self._learner is not None:
+            return self._learner.update(batch)
+        return self._actor.update.remote(batch)
+
+    def get_weights(self):
+        if self._learner is not None:
+            return self._learner.get_weights()
+        import ray_tpu_torch as rt
+
+        return rt.get(self._actor.get_weights.remote(), timeout=300)
+
     def shutdown(self):
-        pass
+        if self._actor is not None:
+            stop_actors([self._actor])

@@ -1,25 +1,29 @@
-"""DQN's learner: Q-learning against a lagged target network
-(counterpart of ``ray_tpu/rllib/dqn.py``'s ``DQNConfig``, ``DISCOUNT``,
-``nstep_returns`` and ``DQNLearner``).
+"""DQN: off-policy Q-learning with replay and a target network
+(counterpart of ``ray_tpu/rllib/dqn.py``).
 
-Ref analogue: rllib/algorithms/dqn/ (double-Q + target network sync). The
-learner is a double-DQN TD update on the card, with plain or dueling
-heads (the head layout follows the params tree) and per-row importance
-weights for the prioritized buffer. The algorithm's loop (epsilon-greedy
-sampling on runner actors, replay, target sync by env steps) waits for the
-actor runtime.
+Ref analogue: rllib/algorithms/dqn/ (dqn.py training_step:623, double-Q +
+target network sync). Sampling stays on CPU EnvRunner actors
+(epsilon-greedy); the learner is a double-DQN TD update on the card, with
+plain or dueling heads (the head layout follows the params tree), n-step
+returns folded into the stored transitions, and uniform or prioritized
+replay (per-row importance weights).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
 from ..train.optim import AdamW
-from .algorithm import AlgorithmConfig
+from .algorithm import (
+    Algorithm,
+    AlgorithmConfig,
+    _PolicyFactory,
+    linear_epsilon,
+)
 from .core import (
     clone_tree,
     to_device,
@@ -27,7 +31,8 @@ from .core import (
     tree_to_numpy,
     value_and_grad,
 )
-from .env_runner import NEXT_OBS
+from .env_runner import NEXT_OBS, TransitionEnvRunner
+from .replay_buffers import PrioritizedReplayBuffer, ReplayBuffer
 from .sample_batch import ACTIONS, DONES, OBS, REWARDS, SampleBatch
 
 
@@ -48,6 +53,9 @@ class DQNConfig(AlgorithmConfig):
         self.prioritized_replay: bool = False
         self.prioritized_replay_alpha: float = 0.6
         self.prioritized_replay_beta: float = 0.4
+
+    def build(self, device: DeviceLike = None) -> "DQN":
+        return DQN(self.copy(), device)
 
 
 DISCOUNT = "discount"  # per-row bootstrap discount gamma^k * (1-done)
@@ -166,3 +174,76 @@ class DQNLearner:
 
     def get_weights(self):
         return tree_to_numpy(self._params)
+
+
+class DQN(Algorithm):
+    def _make_policy_factory(self, obs_dim: int, num_actions: int):
+        self._require_discrete()
+        from .policy import DuelingQPolicy, QPolicy
+
+        c = self.config
+        cls = DuelingQPolicy if c.dueling else QPolicy
+        return _PolicyFactory(cls, obs_dim, num_actions, c.hidden_size,
+                              c.seed)
+
+    def _runner_class(self):
+        return TransitionEnvRunner
+
+    def _build_learner(self, policy):
+        c = self.config
+        self._rng = np.random.RandomState(c.seed)
+        if c.prioritized_replay:
+            self.buffer: ReplayBuffer = PrioritizedReplayBuffer(
+                c.buffer_size, alpha=c.prioritized_replay_alpha,
+                beta=c.prioritized_replay_beta, seed=c.seed,
+            )
+        else:
+            self.buffer = ReplayBuffer(c.buffer_size, seed=c.seed)
+        self._env_steps = 0
+        self._last_target_sync = 0
+        return DQNLearner(policy, c.lr, c.double_q, device=self.device)
+
+    def _epsilon(self) -> float:
+        return linear_epsilon(self.config, self._env_steps)
+
+    def training_step(self) -> Dict[str, Any]:
+        import ray_tpu_torch as rt
+
+        c = self.config
+        # 1) sample transitions from every runner at the current epsilon.
+        eps = self._epsilon()
+        rt.get([r.set_epsilon.remote(eps) for r in self.runners])
+        batches: List[SampleBatch] = self.sample_all()
+        for b in batches:
+            self._env_steps += b.count
+            self.buffer.add(nstep_returns(b, c.n_step, c.gamma))
+
+        stats: Dict[str, Any] = {}
+        num_updates = 0
+        if self._env_steps >= c.num_steps_sampled_before_learning_starts:
+            # 2) learner updates on replayed minibatches.
+            for _ in range(c.num_updates_per_iteration):
+                mb = self.buffer.sample(c.minibatch_size)
+                out = self.learner.update(mb)
+                stats["loss"] = out["loss"]
+                if isinstance(self.buffer, PrioritizedReplayBuffer):
+                    self.buffer.update_priorities(
+                        mb["batch_indexes"], out["td_error"]
+                    )
+                num_updates += 1
+            # 3) lagged target sync by env-step budget.
+            if (self._env_steps - self._last_target_sync
+                    >= c.target_network_update_freq):
+                self.learner.sync_target()
+                self._last_target_sync = self._env_steps
+            # 4) broadcast fresh weights to the rollout plane.
+            self.broadcast(self.learner.get_weights())
+
+        return {
+            **self.episode_stats(),
+            "num_env_steps_sampled": self._env_steps,
+            "num_learner_updates": num_updates,
+            "epsilon": eps,
+            "buffer_size": len(self.buffer),
+            **stats,
+        }

@@ -6,9 +6,8 @@ policy weights, steps a gymnasium-style env, returns SampleBatches. The
 learner on the card never touches the env (env stepping is the CPU hot
 loop; learning is the card's).
 
-A copy of ``ray_tpu/rllib/env_runner.py`` (numpy). The JAX package runs a
-runner as a remote actor; until the port has the actor runtime, a caller
-constructs and calls runners in its own process.
+A copy of ``ray_tpu/rllib/env_runner.py`` (numpy); every runner of this
+module starts in a worker without torch.
 """
 
 from __future__ import annotations

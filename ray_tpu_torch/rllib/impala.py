@@ -1,24 +1,24 @@
-"""IMPALA's learner: actor-critic with V-trace off-policy correction
-(counterpart of ``ray_tpu/rllib/impala.py``'s ``IMPALAConfig`` and
-``IMPALALearner``).
+"""IMPALA: asynchronous actor-critic with V-trace off-policy correction
+(counterpart of ``ray_tpu/rllib/impala.py``).
 
-Ref analogue: rllib/algorithms/impala/ (Espeholt et al. 2018). The
-learner takes one time-major fragment at a time and corrects the lag
-between the runner's weights and its own with V-trace's truncated
-importance weights. The algorithm's continuous sampling waits for the
-actor runtime.
+Ref analogue: rllib/algorithms/impala/ (Espeholt et al. 2018). Runners
+sample CONTINUOUSLY — the learner consumes whatever fragments are ready
+each step instead of barriering on every runner — so rollouts lag the
+learner's weights by a step or two; the learner takes one time-major
+fragment at a time and corrects that lag with V-trace's truncated
+importance weights.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
 from ..train.optim import AdamW
-from .algorithm import AlgorithmConfig
+from .algorithm import Algorithm, AlgorithmConfig
 from .core import (
     ActorCriticModule,
     to_device,
@@ -49,6 +49,9 @@ class IMPALAConfig(AlgorithmConfig):
         self.c_clip: float = 1.0    # V-trace c-bar
         # Max fragments consumed per training_step (bounds staleness).
         self.max_batches_per_step: int = 4
+
+    def build(self, device: DeviceLike = None) -> "IMPALA":
+        return IMPALA(self.copy(), device)
 
 
 @torch.no_grad()
@@ -130,3 +133,48 @@ class IMPALALearner:
 
     def get_weights(self):
         return tree_to_numpy(self._params)
+
+
+class IMPALA(Algorithm):
+    def _build_learner(self, policy):
+        c = self.config
+        learner = IMPALALearner(
+            policy, c.lr, c.gamma, c.rho_clip, c.c_clip,
+            c.vf_loss_coeff, c.entropy_coeff, device=self.device,
+        )
+        # Continuous sampling: every runner always has a fragment in
+        # flight; training_step consumes whatever finished.
+        self._pending = [(r, r.sample.remote()) for r in self.runners]
+        return learner
+
+    def training_step(self) -> Dict[str, Any]:
+        import ray_tpu_torch as rt
+
+        c = self.config
+        refs = [ref for _, ref in self._pending]
+        ready, _ = rt.wait(refs, num_returns=1, timeout=30.0)
+        ready_ids = {r.id() for r in ready}
+        stats: Dict[str, float] = {}
+        consumed = 0
+        still = []
+        for runner, ref in self._pending:
+            if ref.id() in ready_ids and consumed < c.max_batches_per_step:
+                batch = rt.get(ref)
+                stats = self.learner.update(batch)
+                consumed += 1
+                # Ship fresh weights, resubmit the runner immediately:
+                # the lag between these two is what V-trace corrects.
+                runner.set_weights.remote(self.learner.get_weights())
+                still.append((runner, runner.sample.remote()))
+            else:
+                still.append((runner, ref))
+        self._pending = still
+        return {
+            **self.episode_stats(),
+            "num_batches_consumed": consumed,
+            **stats,
+        }
+
+    def stop(self):
+        self._pending = []
+        super().stop()

@@ -1,6 +1,5 @@
-"""MADDPG's learner: multi-agent DDPG with centralized critics
-(counterpart of ``ray_tpu/rllib/maddpg.py``'s ``MADDPGConfig``,
-``MADDPGLearner`` and ``_MADDPGEnvRunner``).
+"""MADDPG: multi-agent DDPG with centralized critics (counterpart of
+``ray_tpu/rllib/maddpg.py``).
 
 Ref analogue: rllib/algorithms/maddpg (Lowe 2017). Execution is
 decentralized (each agent's deterministic actor sees its own observation);
@@ -8,9 +7,8 @@ training is centralized: each agent's critic Q_i(o_all, a_all) sees every
 agent's observation and action, with the other agents' next actions from
 their target actors. One update sums the critics' and the actors'
 gradients into one Adam step over the whole tree, then polyaks every
-target. The runner (the dict multi-agent env convention with Box actions)
-is the JAX package's, copied. The algorithm's loop waits for the actor
-runtime: ``MADDPGConfig.build()`` raises.
+target. The runner actors (the dict multi-agent env convention with Box
+actions) are the JAX package's, copied.
 """
 
 from __future__ import annotations
@@ -20,19 +18,21 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from .._device import DeviceLike
-from .algorithm import AlgorithmConfig
+from .._device import DeviceLike, resolve_device
+from .algorithm import AlgorithmConfig, episode_result, stop_actors
 from .core import (
     DeterministicActorModule,
     Learner,
     QModule,
     polyak_,
     to_device,
+    to_floats,
     tree_map,
     tree_to_numpy,
     value_and_grad,
 )
 from .policy import init_mlp_params
+from .replay_buffers import ReplayBuffer
 from .sample_batch import SampleBatch
 
 
@@ -47,6 +47,9 @@ class MADDPGConfig(AlgorithmConfig):
         self.exploration_noise: float = 0.2
         # probed/declared dims
         self.act_dim: int = 0   # per-agent Box action dim (required)
+
+    def build(self, device: DeviceLike = None) -> "MADDPG":
+        return MADDPG(self.copy(), device)
 
 
 def _joint(x):  # [B, A, D] -> [B, A*D]
@@ -233,3 +236,85 @@ class _MADDPGEnvRunner:
             "episode_reward_mean": float(np.mean(recent))
             if recent else 0.0,
         }
+
+
+class MADDPG:
+    def __init__(self, config: MADDPGConfig, device: DeviceLike = None):
+        import ray_tpu_torch as rt
+
+        self.config = config
+        self.iteration = 0
+        self.device = resolve_device(device)
+        c = config
+        creator = c.env_creator()
+        probe = creator()
+        obs0, _ = probe.reset(seed=0)
+        self.agent_ids = sorted(obs0.keys())
+        n = len(self.agent_ids)
+        obs_dim = int(np.prod(np.asarray(
+            obs0[self.agent_ids[0]]).shape))
+        if hasattr(probe, "close"):
+            probe.close()
+        low = -np.ones(c.act_dim, np.float32)
+        high = np.ones(c.act_dim, np.float32)
+        if hasattr(probe, "action_low"):
+            low = np.asarray(probe.action_low, np.float32)
+            high = np.asarray(probe.action_high, np.float32)
+        self._n, self._obs_dim = n, obs_dim
+
+        runner_cls = rt.remote(_MADDPGEnvRunner)
+        self.runners = [
+            runner_cls.remote(
+                creator, self.agent_ids, obs_dim, c.act_dim, low, high,
+                c.hidden_size, c.exploration_noise, seed=c.seed + i,
+                rollout_fragment_length=c.rollout_fragment_length,
+            )
+            for i in range(c.num_env_runners)
+        ]
+        self.learner = MADDPGLearner(
+            n, obs_dim, c.act_dim, c.hidden_size, c.lr, c.tau,
+            c.gamma, c.seed, device=self.device,
+        )
+        self.buffer = ReplayBuffer(c.buffer_size, seed=c.seed)
+        self._env_steps = 0
+
+    def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch as rt
+
+        self.iteration += 1
+        c = self.config
+        batches = rt.get([r.sample.remote() for r in self.runners])
+        for b in batches:
+            self.buffer.add(b)
+            self._env_steps += b.count
+
+        stats: Dict[str, Any] = {}
+        num_updates = 0
+        if self._env_steps >= c.num_steps_sampled_before_learning_starts:
+            for _ in range(c.num_updates_per_iteration):
+                mb = self.buffer.sample(c.minibatch_size)
+                stats = self.learner.learn_on_batch({
+                    "obs": mb["obs"], "actions": mb["actions"],
+                    "rew": mb["rew"], "done": mb["done"],
+                    "next_obs": mb["next_obs"],
+                })
+                num_updates += 1
+            stats = to_floats(stats)
+            weights = self.learner.actor_weights()
+            rt.get([r.set_weights.remote(weights) for r in self.runners])
+
+        ep = episode_result(
+            rt.get([r.episode_stats.remote() for r in self.runners]))
+        return {
+            "training_iteration": self.iteration,
+            **ep,
+            "num_env_steps_sampled": self._env_steps,
+            "num_learner_updates": num_updates,
+            **stats,
+        }
+
+    def get_weights(self):
+        return self.learner.actor_weights()
+
+    def stop(self):
+        stop_actors(self.runners)

@@ -1,8 +1,9 @@
-"""PG's learner: vanilla policy gradient, REINFORCE (counterpart of
-``ray_tpu/rllib/pg.py``'s ``PGConfig`` and ``PGLearner``).
+"""PG: vanilla policy gradient, REINFORCE (counterpart of
+``ray_tpu/rllib/pg.py``).
 
 Ref analogue: rllib/algorithms/pg — no critic, no clipping, no epochs;
-the gradient is grad log pi(a|s) * R_t with the runner's returns.
+the gradient is grad log pi(a|s) * R_t with the runner's returns. ``PG``
+is A2C's synchronous driver with this learner.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike
+from .a2c import A2C
 from .algorithm import AlgorithmConfig
 from .core import ActorCriticModule, Learner
 from .ppo import action_logp, normalized
@@ -23,6 +25,9 @@ class PGConfig(AlgorithmConfig):
     def __init__(self):
         super().__init__()
         self.lr = 1e-3
+
+    def build(self, device: DeviceLike = None) -> "PG":
+        return PG(self.copy(), device)
 
 
 class PGLearner(Learner):
@@ -45,3 +50,10 @@ class PGLearner(Learner):
             "actions": np.asarray(mb[ACTIONS], dtype=np.int32),
             "returns": mb[RETURNS],
         })
+
+
+class PG(A2C):
+    """Shares A2C's synchronous driver; only the loss differs."""
+
+    def _build_learner(self, policy):
+        return PGLearner(policy, self.config.lr, device=self.device)

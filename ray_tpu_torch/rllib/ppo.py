@@ -1,23 +1,21 @@
-"""PPO's learner: the clipped surrogate (counterpart of
-``ray_tpu/rllib/ppo.py``'s ``PPOConfig`` and ``PPOLearner``).
+"""PPO: clipped-surrogate policy optimization (counterpart of
+``ray_tpu/rllib/ppo.py``).
 
-Ref analogue: rllib/algorithms/ppo/ (the torch learner). The learner runs
-on the card; the rollout plane stays numpy (``EnvRunner``). The PPO
-algorithm's sampling loop (``training_step``) waits for the actor runtime:
-a caller samples its runners, concatenates the fragments, calls
-``update_epochs`` and hands ``get_weights()`` back to the runners.
+Ref analogue: rllib/algorithms/ppo/ (ppo.py:392 training_step, the torch
+learner). The learner runs on the card in the driver; the rollout plane
+stays numpy on CPU EnvRunner actors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike
-from .algorithm import AlgorithmConfig
+from .algorithm import Algorithm, AlgorithmConfig
 from .core import ActorCriticModule, Learner, to_floats
 from .sample_batch import (
     ACTIONS,
@@ -35,6 +33,9 @@ class PPOConfig(AlgorithmConfig):
         self.clip_param: float = 0.2
         self.vf_loss_coeff: float = 0.5
         self.entropy_coeff: float = 0.01
+
+    def build(self, device: DeviceLike = None) -> "PPO":
+        return PPO(self.copy(), device)
 
 
 def normalized(x: torch.Tensor) -> torch.Tensor:
@@ -114,3 +115,30 @@ class PPOLearner(Learner):
                     "returns": mb[RETURNS],
                 })
         return to_floats(stats)
+
+
+class PPO(Algorithm):
+    def _build_learner(self, policy):
+        c = self.config
+        self._rng = np.random.RandomState(c.seed)
+        return PPOLearner(
+            policy, c.lr, c.clip_param, c.vf_loss_coeff, c.entropy_coeff,
+            device=self.device,
+        )
+
+    def training_step(self) -> Dict[str, Any]:
+        c = self.config
+        batches: List[SampleBatch] = []
+        while sum(b.count for b in batches) < c.train_batch_size:
+            batches.extend(self.sample_all())
+        batch = SampleBatch.concat(batches)
+        learner_stats = self.learner.update_epochs(
+            batch, epochs=c.num_epochs, minibatch_size=c.minibatch_size,
+            rng=self._rng,
+        )
+        self.broadcast(self.learner.get_weights())
+        return {
+            **self.episode_stats(),
+            "num_env_steps_sampled": batch.count,
+            **learner_stats,
+        }

@@ -1,16 +1,14 @@
-"""QMIX's learner: cooperative multi-agent Q-learning with monotonic value
-mixing (counterpart of ``ray_tpu/rllib/qmix.py``'s ``QMIXConfig``,
-``QMIXLearner`` and ``_QMIXEnvRunner``).
+"""QMIX: cooperative multi-agent Q-learning with monotonic value mixing
+(counterpart of ``ray_tpu/rllib/qmix.py``).
 
 Ref analogue: rllib/algorithms/qmix (Rashid 2018). Agents share one
 utility network Q_a(o_a, .); a mixing hypernetwork combines the chosen
 per-agent utilities into Q_tot conditioned on the global state, kept
 monotonic by abs() weights, so the per-agent argmax is the team's. TD
 target: y = r_team + gamma (1-d) Q_tot'(s', max_a Q_a'(o'_a, .)), with the
-whole tree's target hard-synced by ``sync_target``. The runner (the dict
-multi-agent env convention, every agent present each step) is the JAX
-package's, copied, as a plain class. The algorithm's loop waits for the
-actor runtime: ``QMIXConfig.build()`` raises.
+whole tree's target hard-synced by ``sync_target``. The runner actors
+(the dict multi-agent env convention, every agent present each step) are
+the JAX package's, copied.
 """
 
 from __future__ import annotations
@@ -21,10 +19,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import DeviceLike
-from .algorithm import AlgorithmConfig
-from .core import Learner, RLModule, clone_tree, take, tree_to_numpy
-from .policy import init_mlp_params
+from .._device import DeviceLike, resolve_device
+from .algorithm import (
+    AlgorithmConfig,
+    _PolicyFactory,
+    episode_result,
+    linear_epsilon,
+    stop_actors,
+)
+from .core import (
+    Learner,
+    RLModule,
+    clone_tree,
+    take,
+    to_floats,
+    tree_to_numpy,
+)
+from .policy import QPolicy, init_mlp_params
+from .replay_buffers import ReplayBuffer
 from .sample_batch import SampleBatch
 
 
@@ -43,6 +55,9 @@ class QMIXConfig(AlgorithmConfig):
         # agent ids (sorted) + per-agent spaces; probed from the env
         self.obs_dim: int = 0
         self.num_actions: int = 0
+
+    def build(self, device: DeviceLike = None) -> "QMIX":
+        return QMIX(self.copy(), device)
 
 
 class QMIXLearner(Learner):
@@ -188,3 +203,107 @@ class _QMIXEnvRunner:
             "episode_reward_mean": float(np.mean(recent))
             if recent else 0.0,
         }
+
+
+class QMIX:
+    def __init__(self, config: QMIXConfig, device: DeviceLike = None):
+        import ray_tpu_torch as rt
+
+        self.config = config
+        self.iteration = 0
+        self.device = resolve_device(device)
+        c = config
+        creator = c.env_creator()
+        probe = creator()
+        obs0, _ = probe.reset(seed=0)
+        self.agent_ids = sorted(obs0.keys())
+        n_agents = len(self.agent_ids)
+        obs_dim = c.obs_dim or int(
+            np.prod(np.asarray(obs0[self.agent_ids[0]]).shape)
+        )
+        if not c.num_actions:
+            raise ValueError("QMIXConfig.training(num_actions=...) "
+                             "required")
+        if hasattr(probe, "close"):
+            probe.close()
+        self._n_agents, self._obs_dim = n_agents, obs_dim
+        state_dim = n_agents * obs_dim
+
+        policy_factory = _PolicyFactory(QPolicy, obs_dim, c.num_actions,
+                                        c.hidden_size, c.seed)
+        runner_cls = rt.remote(_QMIXEnvRunner)
+        self.runners = [
+            runner_cls.remote(
+                creator, policy_factory, self.agent_ids,
+                seed=c.seed + i,
+                rollout_fragment_length=c.rollout_fragment_length,
+            )
+            for i in range(c.num_env_runners)
+        ]
+        self.learner = QMIXLearner(
+            policy_factory().get_weights(),
+            n_agents=n_agents, obs_dim=obs_dim,
+            num_actions=c.num_actions, state_dim=state_dim,
+            embed=c.mixing_embed_dim, lr=c.lr, gamma=c.gamma,
+            seed=c.seed, device=self.device,
+        )
+        self.buffer = ReplayBuffer(c.buffer_size, seed=c.seed)
+        self._env_steps = 0
+        self._last_target_sync = 0
+
+    def _epsilon(self) -> float:
+        return linear_epsilon(self.config, self._env_steps)
+
+    def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch as rt
+
+        self.iteration += 1
+        c = self.config
+        eps = self._epsilon()
+        rt.get([r.set_epsilon.remote(eps) for r in self.runners])
+        batches = rt.get([r.sample.remote() for r in self.runners])
+        for b in batches:
+            self.buffer.add(b)
+            self._env_steps += b.count
+
+        stats: Dict[str, Any] = {}
+        num_updates = 0
+        if self._env_steps >= c.num_steps_sampled_before_learning_starts:
+            for _ in range(c.num_updates_per_iteration):
+                mb = self.buffer.sample(c.minibatch_size)
+                obs = np.asarray(mb["obs"], np.float32)
+                nxt = np.asarray(mb["next_obs"], np.float32)
+                stats = self.learner.update_qmix({
+                    "obs": obs,
+                    "state": obs.reshape(len(obs), -1),
+                    "actions": np.asarray(mb["actions"], np.int32),
+                    "rew": np.asarray(mb["rew"], np.float32),
+                    "done": np.asarray(mb["done"], np.float32),
+                    "next_obs": nxt,
+                    "next_state": nxt.reshape(len(nxt), -1),
+                })
+                num_updates += 1
+            stats = to_floats(stats)
+            if (self._env_steps - self._last_target_sync
+                    >= c.target_network_update_freq):
+                self.learner.sync_target()
+                self._last_target_sync = self._env_steps
+            weights = self.learner.agent_weights()
+            rt.get([r.set_weights.remote(weights) for r in self.runners])
+
+        ep = episode_result(
+            rt.get([r.episode_stats.remote() for r in self.runners]))
+        return {
+            "training_iteration": self.iteration,
+            **ep,
+            "num_env_steps_sampled": self._env_steps,
+            "num_learner_updates": num_updates,
+            "epsilon": eps,
+            **stats,
+        }
+
+    def get_weights(self):
+        return self.learner.agent_weights()
+
+    def stop(self):
+        stop_actors(self.runners)

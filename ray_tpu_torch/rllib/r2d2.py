@@ -1,17 +1,14 @@
-"""R2D2's learner: recurrent experience replay (counterpart of
-``ray_tpu/rllib/r2d2.py``'s ``R2D2Config``, ``_lstm_step_np``,
-``_init_params``, ``_R2D2Policy``, ``_R2D2EnvRunner`` and
-``R2D2Learner``).
+"""R2D2: recurrent experience replay in distributed RL (counterpart of
+``ray_tpu/rllib/r2d2.py``).
 
 Ref analogue: rllib/algorithms/r2d2 (Kapturowski 2019). The Q-network is
 an LSTM; replay stores fixed-length sequences with the recurrent state
 captured at sequence start, and the learner unrolls the online and target
 nets over each sequence from that state under a masked double-Q TD loss.
-The rollout side (the numpy LSTM cell, the policy, the runner) is the JAX
-package's, copied. The learner unrolls the cell as a loop of T steps on
-the card, in float32, with the gates in the order i, f, g, o and one bias.
-The algorithm's loop (runner actors, replay, target sync) waits for the
-actor runtime: ``R2D2Config.build()`` raises.
+The rollout side (the numpy LSTM cell, the policy, the runner actors) is
+the JAX package's, copied. The learner unrolls the cell as a loop of T
+steps on the card, in float32, with the gates in the order i, f, g, o and
+one bias.
 """
 
 from __future__ import annotations
@@ -23,7 +20,14 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..train.optim import AdamW
-from .algorithm import AlgorithmConfig
+from .algorithm import (
+    AlgorithmConfig,
+    _PolicyFactory,
+    episode_result,
+    linear_epsilon,
+    probe_env,
+    stop_actors,
+)
 from .core import (
     clone_tree,
     take,
@@ -33,6 +37,7 @@ from .core import (
     value_and_grad,
 )
 from .policy import init_mlp_params
+from .replay_buffers import ReplayBuffer
 from .sample_batch import SampleBatch
 
 
@@ -62,6 +67,9 @@ class R2D2Config(AlgorithmConfig):
         self.epsilon_final: float = 0.05
         self.epsilon_timesteps: int = 6_000
         self.minibatch_size = 32            # sequences per batch
+
+    def build(self, device: DeviceLike = None) -> "R2D2":
+        return R2D2(self.copy(), device)
 
 
 def _init_params(obs_dim: int, num_actions: int, hidden: int,
@@ -288,3 +296,84 @@ class R2D2Learner:
 
     def set_weights(self, weights):
         self._params = tree_to_device(weights, self.device)
+
+
+class R2D2:
+    def __init__(self, config: R2D2Config, device: DeviceLike = None):
+        import ray_tpu_torch as rt
+
+        self.config = config
+        self.iteration = 0
+        self.device = resolve_device(device)
+        c = config
+        creator = c.env_creator()
+        obs_dim, space = probe_env(creator)
+        if not hasattr(space, "n"):
+            raise ValueError("R2D2 supports discrete action spaces")
+        num_actions = int(space.n)
+        self._obs_dim, self._num_actions = obs_dim, num_actions
+
+        policy_factory = _PolicyFactory(_R2D2Policy, obs_dim, num_actions,
+                                        c.lstm_size, c.seed)
+        runner_cls = rt.remote(_R2D2EnvRunner)
+        self.runners = [
+            runner_cls.remote(
+                creator, policy_factory, seed=c.seed + i,
+                rollout_fragment_length=c.rollout_fragment_length,
+                seq_len=c.seq_len,
+            )
+            for i in range(c.num_env_runners)
+        ]
+        self.learner = R2D2Learner(
+            obs_dim, num_actions, c.lstm_size, c.lr, c.gamma, c.seed,
+            device=self.device,
+        )
+        self.buffer = ReplayBuffer(c.buffer_size, seed=c.seed)
+        self._env_steps = 0
+        self._last_target_sync = 0
+
+    def _epsilon(self) -> float:
+        return linear_epsilon(self.config, self._env_steps)
+
+    def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch as rt
+
+        self.iteration += 1
+        c = self.config
+        eps = self._epsilon()
+        rt.get([r.set_epsilon.remote(eps) for r in self.runners])
+        batches = rt.get([r.sample.remote() for r in self.runners])
+        for b in batches:
+            self.buffer.add(b)
+            self._env_steps += int(b["mask"].sum())
+
+        loss = float("nan")
+        num_updates = 0
+        if self._env_steps >= c.num_steps_sampled_before_learning_starts:
+            for _ in range(c.num_updates_per_iteration):
+                mb = self.buffer.sample(c.minibatch_size)
+                loss = self.learner.learn_on_batch(mb)
+                num_updates += 1
+            if (self._env_steps - self._last_target_sync
+                    >= c.target_network_update_freq):
+                self.learner.sync_target()
+                self._last_target_sync = self._env_steps
+            w = self.learner.get_weights()
+            rt.get([r.set_weights.remote(w) for r in self.runners])
+
+        ep = episode_result(
+            rt.get([r.episode_stats.remote() for r in self.runners]))
+        return {
+            "training_iteration": self.iteration,
+            **ep,
+            "num_env_steps_sampled": self._env_steps,
+            "num_learner_updates": num_updates,
+            "epsilon": eps,
+            "loss": loss,
+        }
+
+    def get_weights(self):
+        return self.learner.get_weights()
+
+    def stop(self):
+        stop_actors(self.runners)

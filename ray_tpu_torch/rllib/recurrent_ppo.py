@@ -1,21 +1,17 @@
-"""Recurrent PPO's learner: LSTM policies for partially observable tasks
-(counterpart of ``ray_tpu/rllib/recurrent_ppo.py``'s
-``RecurrentPPOConfig``, ``_init_params``, ``_LSTMAcPolicy``,
-``_RecurrentEnvRunner`` and ``RecurrentPPOLearner``).
+"""Recurrent PPO: LSTM policies for partially observable tasks
+(counterpart of ``ray_tpu/rllib/recurrent_ppo.py``).
 
 Ref analogue: the reference PPO's ``use_lstm`` model option. The rollout
 policy is an LSTM actor-critic in numpy with carried hidden state; the
-runner computes GAE over the flat fragment and chops it into stored-state
-sequences that never cross an episode boundary (both copied from the JAX
-package). The learner unrolls the LSTM over each sequence on the card
-(R2D2's loop of cells) under a masked clipped-surrogate loss. The
-algorithm's loop waits for the actor runtime:
-``RecurrentPPOConfig.build()`` raises.
+runner actors compute GAE over the flat fragment and chop it into
+stored-state sequences that never cross an episode boundary (both copied
+from the JAX package). The learner unrolls the LSTM over each sequence on
+the card (R2D2's loop of cells) under a masked clipped-surrogate loss.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -23,7 +19,12 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..train.optim import AdamW
-from .algorithm import AlgorithmConfig
+from .algorithm import (
+    Algorithm,
+    AlgorithmConfig,
+    _PolicyFactory,
+    probe_env,
+)
 from .core import (
     take,
     to_device,
@@ -46,6 +47,9 @@ class RecurrentPPOConfig(AlgorithmConfig):
         self.lstm_size: int = 32
         self.seq_len: int = 8
         self.num_epochs = 4
+
+    def build(self, device: DeviceLike = None) -> "RecurrentPPO":
+        return RecurrentPPO(self.copy(), device)
 
 
 def _init_params(obs_dim, num_actions, hidden, seed):
@@ -258,3 +262,67 @@ class RecurrentPPOLearner:
 
     def set_weights(self, weights):
         self._params = tree_to_device(weights, self.device)
+
+
+class RecurrentPPO(Algorithm):
+    def _make_policy_factory(self, obs_dim: int, num_actions: int):
+        self._require_discrete()
+        c = self.config
+        return _PolicyFactory(_LSTMAcPolicy, obs_dim, num_actions,
+                              c.lstm_size, c.seed)
+
+    def _runner_class(self):
+        return _RecurrentEnvRunner
+
+    def __init__(self, config, device: DeviceLike = None):
+        import ray_tpu_torch as rt
+
+        # Custom runner construction (needs seq_len), so build the
+        # gang here instead of the base constructor's loop.
+        self.config = config
+        self.iteration = 0
+        self.device = resolve_device(device)
+        c = config
+        creator = c.env_creator()
+        obs_dim, space = probe_env(creator)
+        if not hasattr(space, "n"):
+            raise ValueError(
+                "RecurrentPPO supports discrete action spaces"
+            )
+        num_actions = int(space.n)
+        self._obs_dim, self._num_actions = obs_dim, num_actions
+        self._continuous = False
+
+        policy_factory = self._make_policy_factory(obs_dim,
+                                                   num_actions)
+        runner_cls = rt.remote(_RecurrentEnvRunner)
+        self.runners = [
+            runner_cls.remote(
+                creator, policy_factory, seed=c.seed + i,
+                rollout_fragment_length=c.rollout_fragment_length,
+                gamma=c.gamma, lam=c.lambda_, seq_len=c.seq_len,
+            )
+            for i in range(c.num_env_runners)
+        ]
+        self.learner = RecurrentPPOLearner(obs_dim, num_actions, c,
+                                           device=self.device)
+        self._rng = np.random.RandomState(c.seed)
+
+    def training_step(self) -> Dict[str, Any]:
+        c = self.config
+        batch = SampleBatch.concat(self.sample_all())
+        loss = float("nan")
+        for _ in range(c.num_epochs):
+            sh = batch.shuffle(self._rng)
+            for mb in sh.minibatches(
+                max(1, min(c.minibatch_size // c.seq_len, sh.count))
+            ):
+                loss = self.learner.learn_on_batch(dict(mb))
+        self.broadcast(self.learner.get_weights())
+        return {
+            **self.episode_stats(),
+            "num_env_steps_sampled":
+                self.iteration * c.num_env_runners
+                * c.rollout_fragment_length,
+            "loss": loss,
+        }

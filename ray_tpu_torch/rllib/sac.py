@@ -1,6 +1,5 @@
-"""SAC's learner: off-policy maximum-entropy actor-critic for continuous
-control (counterpart of ``ray_tpu/rllib/sac.py``'s ``SACConfig``,
-``_mlp_init`` and ``SACLearner``).
+"""SAC: off-policy maximum-entropy actor-critic for continuous control
+(counterpart of ``ray_tpu/rllib/sac.py``).
 
 Ref analogue: rllib/algorithms/sac/ (sac.py + sac_torch_policy.py) —
 twin Q networks with polyak-averaged targets, a tanh-squashed Gaussian
@@ -8,7 +7,7 @@ actor, and automatic temperature tuning against a target entropy
 (Haarnoja 2018). One update steps both critics, the actor and the
 temperature from one loss on the card. The reparameterisation noise comes
 from the learner's numpy ``RandomState(seed + 2)`` in the JAX package's
-order. The algorithm's replay loop waits for the actor runtime.
+order. The replay loop is DDPG's (``ddpg.continuous_loop``).
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..train.optim import AdamW
-from .algorithm import AlgorithmConfig
+from .algorithm import Algorithm, AlgorithmConfig, _PolicyFactory
 from .core import (
     QModule,
     RLModule,
@@ -34,8 +33,10 @@ from .core import (
     tree_to_numpy,
     value_and_grad,
 )
-from .env_runner import NEXT_OBS
+from .ddpg import continuous_loop
+from .env_runner import NEXT_OBS, TransitionEnvRunner
 from .policy import init_mlp_params
+from .replay_buffers import ReplayBuffer
 from .sample_batch import ACTIONS, DONES, OBS, REWARDS, SampleBatch
 
 _LOG_STD_MIN, _LOG_STD_MAX = -5.0, 2.0
@@ -51,6 +52,9 @@ class SACConfig(AlgorithmConfig):
         self.tau: float = 0.005          # polyak coefficient
         self.initial_alpha: float = 0.2
         self.target_entropy: float | None = None  # default: -act_dim
+
+    def build(self, device: DeviceLike = None) -> "SAC":
+        return SAC(self.copy(), device)
 
 
 def _mlp_init(rng, sizes):
@@ -155,7 +159,8 @@ class SACLearner:
                        "actor_loss": actor_loss.detach(),
                        "alpha": alpha_c}
 
-    def update(self, batch: SampleBatch) -> Dict[str, Any]:
+    def update_device(self, batch: SampleBatch) -> Dict[str, Any]:
+        """One step; the stats stay on the device."""
         dev = self.device
         n = batch.count
         eps1 = self._rng.randn(n, self._act_dim).astype(np.float32)
@@ -171,7 +176,40 @@ class SACLearner:
         self._opt.update(self._params, grads, self._opt_state)
         for k in ("q1", "q2"):
             polyak_(self._target[k], self._params[k], self._tau)
-        return to_floats({"loss": loss, **stats})
+        return {"loss": loss, **stats}
+
+    def update(self, batch: SampleBatch) -> Dict[str, Any]:
+        return to_floats(self.update_device(batch))
 
     def get_weights(self):
         return tree_to_numpy(self._params["actor"])
+
+
+class SAC(Algorithm):
+    def _make_policy_factory(self, obs_dim: int, act_dim: int):
+        from .policy import SquashedGaussianPolicy
+
+        if not getattr(self, "_continuous", False):
+            raise ValueError(
+                "SAC supports Box (continuous) action spaces only; use "
+                "PPO/DQN/IMPALA for discrete envs"
+            )
+        c = self.config
+        return _PolicyFactory(SquashedGaussianPolicy, obs_dim, act_dim,
+                              self._action_low, self._action_high,
+                              c.hidden_size, c.seed)
+
+    def _runner_class(self):
+        return TransitionEnvRunner
+
+    def _build_learner(self, policy):
+        c = self.config
+        self.buffer = ReplayBuffer(c.buffer_size, seed=c.seed)
+        self._env_steps = 0
+        return SACLearner(policy, c, self._obs_dim, self._num_actions,
+                          self._action_low, self._action_high,
+                          device=self.device)
+
+    def training_step(self) -> Dict[str, Any]:
+        return continuous_loop(
+            self, lambda i, mb: self.learner.update_device(mb))

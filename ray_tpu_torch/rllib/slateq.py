@@ -1,6 +1,5 @@
-"""SlateQ's learner: Q-learning for slate recommendation (counterpart of
-``ray_tpu/rllib/slateq.py``'s ``SlateQConfig``, ``_item_scores``,
-``_q_items``, ``_SlatePolicy``, ``_SlateEnvRunner`` and ``SlateQLearner``).
+"""SlateQ: Q-learning for slate recommendation (counterpart of
+``ray_tpu/rllib/slateq.py``).
 
 Ref analogue: rllib/algorithms/slateq (Ie 2019). The action is a slate of
 k items out of a catalog; Q(s, slate) decomposes under the single-choice
@@ -9,9 +8,8 @@ user model into per-item values,
 with P a conditional logit over item scores and a no-click option of
 score 0. Q_item is an MLP over [user, item] trained by a SARSA-style
 backup on the clicked item; the next slate is the top k of
-v_i * Q_item(s, i). The rollout side is the JAX package's numpy, copied.
-The algorithm's loop waits for the actor runtime:
-``SlateQConfig.build()`` raises.
+v_i * Q_item(s, i). The rollout side (the runner actors) is the JAX
+package's numpy, copied.
 
 Env protocol (recsys convention):
   reset() -> (user_obs, info)
@@ -23,7 +21,7 @@ Env protocol (recsys convention):
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -31,7 +29,13 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..train.optim import AdamW
-from .algorithm import AlgorithmConfig
+from .algorithm import (
+    AlgorithmConfig,
+    _PolicyFactory,
+    episode_result,
+    linear_epsilon,
+    stop_actors,
+)
 from .core import (
     RLModule,
     clone_tree,
@@ -42,6 +46,7 @@ from .core import (
     value_and_grad,
 )
 from .policy import init_mlp_params
+from .replay_buffers import ReplayBuffer
 from .sample_batch import SampleBatch
 
 
@@ -56,6 +61,9 @@ class SlateQConfig(AlgorithmConfig):
         self.epsilon_initial: float = 1.0
         self.epsilon_final: float = 0.05
         self.epsilon_timesteps: int = 5_000
+
+    def build(self, device: DeviceLike = None) -> "SlateQ":
+        return SlateQ(self.copy(), device)
 
 
 def _item_scores(weights, user, items):
@@ -280,3 +288,88 @@ class SlateQLearner:
 
     def set_weights(self, weights):
         self._params = tree_to_device(weights, self.device)
+
+
+class SlateQ:
+    def __init__(self, config: SlateQConfig, device: DeviceLike = None):
+        import ray_tpu_torch as rt
+
+        self.config = config
+        self.iteration = 0
+        self.device = resolve_device(device)
+        c = config
+        creator = c.env_creator()
+        probe = creator()
+        user0, _ = probe.reset(seed=0)
+        user_dim = int(np.asarray(user0).reshape(-1).shape[0])
+        items = np.asarray(probe.item_features, np.float32)
+        self._slate_size = int(probe.slate_size)
+        num_items = int(probe.num_items)
+        if hasattr(probe, "close"):
+            probe.close()
+
+        policy_factory = _PolicyFactory(
+            _SlatePolicy, user_dim, items.shape[1], num_items,
+            self._slate_size, c.hidden_size, c.seed)
+        runner_cls = rt.remote(_SlateEnvRunner)
+        self.runners = [
+            runner_cls.remote(
+                creator, policy_factory, seed=c.seed + i,
+                rollout_fragment_length=c.rollout_fragment_length,
+            )
+            for i in range(c.num_env_runners)
+        ]
+        self.learner = SlateQLearner(
+            policy_factory(), items, self._slate_size, c.lr, c.gamma,
+            device=self.device,
+        )
+        self.buffer = ReplayBuffer(c.buffer_size, seed=c.seed)
+        self._env_steps = 0
+        self._last_target_sync = 0
+
+    def _epsilon(self) -> float:
+        return linear_epsilon(self.config, self._env_steps)
+
+    def train(self) -> Dict[str, Any]:
+        import ray_tpu_torch as rt
+
+        self.iteration += 1
+        c = self.config
+        eps = self._epsilon()
+        rt.get([r.set_epsilon.remote(eps) for r in self.runners])
+        batches = rt.get([r.sample.remote() for r in self.runners])
+        for b in batches:
+            self.buffer.add(b)
+            self._env_steps += b.count
+
+        loss = float("nan")
+        num_updates = 0
+        if self._env_steps >= c.num_steps_sampled_before_learning_starts:
+            for _ in range(c.num_updates_per_iteration):
+                loss = self.learner.learn_on_batch(
+                    self.buffer.sample(c.minibatch_size)
+                )
+                num_updates += 1
+            if (self._env_steps - self._last_target_sync
+                    >= c.target_network_update_freq):
+                self.learner.sync_target()
+                self._last_target_sync = self._env_steps
+            w = self.learner.get_weights()
+            rt.get([r.set_weights.remote(w) for r in self.runners])
+
+        ep = episode_result(
+            rt.get([r.episode_stats.remote() for r in self.runners]))
+        return {
+            "training_iteration": self.iteration,
+            **ep,
+            "num_env_steps_sampled": self._env_steps,
+            "num_learner_updates": num_updates,
+            "epsilon": eps,
+            "loss": loss,
+        }
+
+    def get_weights(self):
+        return self.learner.get_weights()
+
+    def stop(self):
+        stop_actors(self.runners)

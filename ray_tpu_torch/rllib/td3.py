@@ -1,13 +1,13 @@
-"""TD3's learner: twin-delayed deterministic policy gradient
-(counterpart of ``ray_tpu/rllib/td3.py``'s ``TD3Config`` and
-``TD3Learner``).
+"""TD3: twin-delayed deterministic policy gradient (counterpart of
+``ray_tpu/rllib/td3.py``).
 
 Ref analogue: rllib/algorithms/td3 — DDPG plus the three TD3 fixes
 (Fujimoto 2018): twin critics with min-target, target-policy smoothing
 (clipped noise on the target action), and delayed actor updates. The
 smoothing noise comes from the learner's numpy ``RandomState(seed + 3)``,
 drawn in the JAX package's order, so both packages see the same noise.
-The algorithm's replay loop waits for the actor runtime.
+The replay loop is DDPG's (``ddpg.continuous_loop``) with the actor step
+every ``policy_delay`` updates.
 """
 
 from __future__ import annotations
@@ -18,14 +18,20 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike
-from .algorithm import AlgorithmConfig
+from .algorithm import Algorithm, AlgorithmConfig
 from .core import (
     DeterministicActorModule,
     QModule,
     TwinCriticLearner,
     to_device,
 )
-from .ddpg import transitions
+from .ddpg import (
+    continuous_loop,
+    deterministic_policy_factory,
+    transitions,
+)
+from .env_runner import TransitionEnvRunner
+from .replay_buffers import ReplayBuffer
 from .sample_batch import SampleBatch
 
 
@@ -41,6 +47,9 @@ class TD3Config(AlgorithmConfig):
         self.target_noise: float = 0.2
         self.target_noise_clip: float = 0.5
         self.exploration_noise: float = 0.1
+
+    def build(self, device: DeviceLike = None) -> "TD3":
+        return TD3(self.copy(), device)
 
 
 class TD3Learner(TwinCriticLearner):
@@ -100,3 +109,25 @@ class TD3Learner(TwinCriticLearner):
         if do_actor:
             stats = {**stats, **self.actor_update(np_batch)}
         return stats
+
+
+class TD3(Algorithm):
+    def _make_policy_factory(self, obs_dim: int, act_dim: int):
+        return deterministic_policy_factory(self, "TD3")
+
+    def _runner_class(self):
+        return TransitionEnvRunner
+
+    def _build_learner(self, policy):
+        c = self.config
+        self.buffer = ReplayBuffer(c.buffer_size, seed=c.seed)
+        self._env_steps = 0
+        return TD3Learner(policy, c, self._obs_dim, self._num_actions,
+                          self._action_low, self._action_high,
+                          device=self.device)
+
+    def training_step(self) -> Dict[str, Any]:
+        delay = self.config.policy_delay
+        return continuous_loop(
+            self, lambda i, mb: self.learner.learn_on_batch(
+                mb, do_actor=(i % delay == 0)))

@@ -977,3 +977,29 @@ def test_gpu_replica_serves_the_drivers_tokens(cuda):
         serve.shutdown()
         rt.shutdown()
     assert got == streamed == want
+
+
+def test_ppo_build_puts_the_learner_on_the_card(cuda):
+    """PPOConfig().build() with no device gives the learner the card, its
+    runners CPU actors of the port's runtime; one train() runs and the
+    runners' weights come back from the card."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import PPOConfig
+
+    import test_torch_rllib_loops as loops
+
+    rt.init(num_cpus=2)
+    try:
+        algo = (PPOConfig().environment(loops.Sign)
+                .env_runners(num_env_runners=2, rollout_fragment_length=64)
+                .training(train_batch_size=128, num_epochs=2)
+                .debugging(seed=0).build())
+        try:
+            assert algo.learner.device.type == "cuda"
+            result = algo.train()
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()
+    assert result["num_env_steps_sampled"] == 128
+    assert np.isfinite(result["total_loss"])

@@ -233,6 +233,7 @@ def fresh_import(tmp_path_factory):
         "from ray_tpu_torch.rllib import alpha_zero, bc, cql, crr, dt\n"
         "from ray_tpu_torch.rllib import maddpg, marwil, qmix, r2d2\n"
         "from ray_tpu_torch.rllib import recurrent_ppo, slateq\n"
+        "from ray_tpu_torch.rllib import a3c, ddppo\n"
         "from ray_tpu_torch.util import device_metrics\n"
         "from ray_tpu_torch.ops import _build, flash_attention as fa\n"
         "from ray_tpu_torch.ops import paged_attention as pa\n"

@@ -616,20 +616,25 @@ OFFLINE = ("BCConfig", "MARWILConfig", "CQLConfig", "CRRConfig", "DTConfig")
 
 def test_configs_match_and_online_builds_raise():
     """Every config's fields equal the JAX config's (AlphaZero's game, a
-    class of each package, by name); the six online configs' build()
-    raises naming the actor runtime."""
-    for name in ONLINE + OFFLINE:
+    class of each package, by name); the six online configs build their
+    algorithms on the port's runtime and stop (the name is from when
+    build() raised); the offline ones raise without data."""
+    import test_torch_rllib_loops as loops
+
+    for name in OFFLINE:
         got, want = vars(getattr(trl, name)()), vars(
             getattr(ray_tpu.rllib, name)())
-        if name == "AlphaZeroConfig":
-            assert got.pop("game").__name__ == want.pop("game").__name__
         assert got == want, name
-    for name in ONLINE:
-        with pytest.raises(NotImplementedError, match="actor runtime"):
-            getattr(trl, name)().build()
-    for name in OFFLINE:
         with pytest.raises(ValueError, match="offline_data"):
             getattr(trl, name)().build()
+    memory = (loops.Memory, {})
+    loops.build_and_stop(
+        [getattr(trl, name)() for name in ONLINE],
+        {"R2D2Config": memory, "RecurrentPPOConfig": memory,
+         "QMIXConfig": (loops.Coop, {"num_actions": 2}),
+         "MADDPGConfig": (loops.CoopPush, {"act_dim": 1}),
+         "SlateQConfig": (loops.RecSys, {}),
+         "AlphaZeroConfig": (None, {})})
 
 
 def _offline_data(algo):
